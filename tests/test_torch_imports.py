@@ -1,0 +1,46 @@
+"""The PyTorch port stands alone: importing every module of it loads
+neither JAX nor the JAX package, and no source file of it (nor
+chip_smoke.py) imports them."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "consistentid_tpu")
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import consistentid_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'consistentid_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(sorted(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 25
+    assert bad == "[]"
+
+
+def test_no_source_imports_jax():
+    files = sorted((REPO / "consistentid_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & set(FORBIDDEN), (path, roots)
