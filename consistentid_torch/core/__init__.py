@@ -1,4 +1,4 @@
 from .config import (AdapterConfig, CLIPTextConfig, CLIPVisionConfig,
-                     PipelineConfig, SchedulerConfig, UNetConfig, VAEConfig,
-                     sd15_unet_config)
+                     PipelineConfig, SchedulerConfig, TrainConfig, UNetConfig,
+                     VAEConfig, sd15_unet_config)
 from .dtypes import resolve_device, resolve_dtype

@@ -1,10 +1,11 @@
 """Configuration dataclasses of the port.
 
-Copies of the JAX package's core/config.py entries that the SD1.5 path
-reads, with the same field names and defaults, so a config carries across
-field by field. Fields the port does not read yet (SDXL text_time, DeepCache,
-prediction types and timestep spacings other than epsilon/leading, the
-adapter's duplicated LoRA and scale defaults) are left out.
+Copies of the JAX package's core/config.py entries that the SD1.5
+text-to-image and training paths read, with the same field names and
+defaults, so a config carries across field by field. Fields the port does
+not read yet (SDXL text_time, DeepCache, prediction types and timestep
+spacings other than epsilon/leading, the adapter's duplicated LoRA and scale
+defaults) are left out.
 """
 from __future__ import annotations
 
@@ -129,3 +130,41 @@ class PipelineConfig:
     guidance_scale: float = 5.0
     start_merge_step: int = 30          # reference infer.py:48-49
     scheduler: str = "ddim"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """SD1.5 adapter training (the JAX package's TrainConfig, same fields and
+    defaults)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-2
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    batch_per_device: int = 2
+    grad_accum_steps: int = 1
+    facial_weight: float = 0.01         # reference train.py:34
+    mask_loss_prob: float = 0.5         # reference train.py:35
+    localization_layers: int = 5        # 3 for SDXL (train_SDXL.py:47)
+    resolution: int = 512
+    max_steps: int = 100000
+    save_steps: int = 1000
+    seed: int = 42
+    # UNet rematerialisation is not ported yet (torch.utils.checkpoint is
+    # its counterpart); setting either field raises
+    remat_unet: bool = False
+    remat_policy: str = "full"  # "full" | "dots"
+    # AdamW first-moment storage dtype ("float32" | "bfloat16"); second
+    # moments stay fp32
+    mu_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.remat_unet or self.remat_policy != "full":
+            raise NotImplementedError(
+                "UNet remat is not ported to the PyTorch package yet")
+        if self.mu_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"mu_dtype {self.mu_dtype!r}: float32 or "
+                             "bfloat16")
+        if self.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1")

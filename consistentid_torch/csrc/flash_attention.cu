@@ -1,16 +1,21 @@
-// Flash-attention forward (K1) for Hopper, sm_90a.
+// Flash-attention forward (K1) and forward with logsumexp (K2) for Hopper,
+// sm_90a.
 //
-// Replaces the JAX package's Pallas TPU kernel `_flash_kernel`
+// K1 replaces the JAX package's Pallas TPU kernel `_flash_kernel`
 // (consistentid_tpu/ops/flash_attention.py, launched by `_flash_forward`).
+// K2 replaces `_flash_fwd_lse_kernel` (same file, launched by
+// `_flash_forward_lse` from the custom VJP's forward `_flash_diff_fwd`).
 // Same function: non-causal O = softmax(s * Q K^T) V per (batch*head), with an
 // online softmax over key tiles, fp32 running max / sum / accumulator, key
-// columns past the true key length masked out, output in q's dtype.
+// columns past the true key length masked out, output in q's dtype. K2 also
+// writes the per-row logsumexp lse = m + log(l) in natural-log units, fp32,
+// which the backward kernels (flash_attention_bwd.cu) recompute P from.
 //
-// What bounds it on an H100 at the SD1.5 main-path shapes (bf16,
-// (B*H, S, D) = (64, 4096, 40) and (64, 1024, 80)):
+// What bounds it on an H100 at the SD1.5 shapes (bf16, (B*H, S, D) =
+// (64, 4096, 40) and (64, 1024, 80) serving, (16, ...) training):
 //   - exp count B*H*Sq*Sk against ~3.9 T/s of special-function throughput,
 //   - 4*B*H*Sq*Sk*D tensor-core FLOPs against 989 TFLOP/s (bf16 dense),
-//   - q, k, v, o bytes against 3.35 TB/s.
+//   - q, k, v, o (and lse) bytes against 3.35 TB/s.
 // At head_dim 40 the exps weigh most (about 1.6x the FLOP time); at head_dim
 // 80 FLOPs and exps are close. The bytes are an order of magnitude below
 // both. So the kernel keeps every (Sq, Sk) score on chip and spends its
@@ -26,124 +31,31 @@
 //     registers for the whole CTA; S = Q K^T and P V reuse the accumulator
 //     layout (P is re-packed from the S accumulators, no shared-memory trip);
 //     V's B fragments come from ldmatrix.trans;
+//   - the softmax runs in the exp2 domain (scores pre-multiplied by log2 e);
+//     K2 converts its running max back to natural-log units when it writes
+//     lse. Every key tile holds at least one valid key, so the max is finite
+//     and no row's lse can be NaN; rows past Sq are never stored;
 //   - fp32 inputs (not on the main path): a SIMT kernel, 4 threads per q row,
 //     fp32 FMAs throughout, so fp32 results keep fp32 accuracy;
 //   - the padded head dim is a template parameter (48, 64, 80 and a generic
 //     128 for any d <= 128); the true d is a runtime bound.
 //
-// C interface: cid_flash_attention_forward(...) launches on the given stream
-// and returns cudaGetLastError() (0 on success). It allocates nothing.
+// C interface: cid_flash_attention_forward(...) (K1) and
+// cid_flash_attention_forward_lse(...) (K2) launch on the given stream and
+// return cudaGetLastError() (0 on success). They allocate nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;    // q rows per CTA (tensor-core kernel)
-constexpr int kBlockK = 64;    // key rows per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // shared-memory row padding, in elements
-constexpr float kLog2e = 1.4426950408889634f;
-
-// ---------------------------------------------------------------- helpers
-
-template <typename T>
-struct TypeOps;
-
-template <>
-struct TypeOps<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct TypeOps<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ __half from_float(float x) {
-    return __float2half(x);
-  }
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* smem_ptr) {
-  uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-// Copy rows [row0, row0 + kRows) of a (seq, d) matrix into a (kRows, DP)
-// shared tile of row stride `ld`, zero-filling rows past `seq` and columns
-// past `d`. 16-byte vector loads when the rows allow them.
-template <typename T, int kRows, int DP>
-__device__ __forceinline__ void load_tile(T* __restrict__ dst, int ld,
-                                          const T* __restrict__ src, int row0,
-                                          int seq, int d, bool vec) {
-  if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kChunks = DP / kVec;  // chunks per padded row
-    for (int i = threadIdx.x; i < kRows * kChunks; i += blockDim.x) {
-      int r = i / kChunks;
-      int c = (i % kChunks) * kVec;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < seq && c < d) {
-        val = *reinterpret_cast<const uint4*>(
-            src + static_cast<int64_t>(row0 + r) * d + c);
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * DP; i += blockDim.x) {
-      int r = i / DP;
-      int c = i % DP;
-      T val = T(0.0f);
-      if (row0 + r < seq && c < d) {
-        val = src[static_cast<int64_t>(row0 + r) * d + c];
-      }
-      dst[r * ld + c] = val;
-    }
-  }
-}
-
 // ------------------------------------------ bf16 / fp16 tensor-core kernel
 
-template <typename T, int DP>
+template <typename T, int DP, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int sq,
-                     int sk, int d, int q_tiles, float scale_log2, bool vec) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, int d,
+                     int q_tiles, float scale_log2, bool vec) {
   static_assert(DP % 16 == 0 && DP <= 128, "padded head_dim");
   constexpr int LD = DP + kPad;  // shared row stride (16-byte multiple)
   constexpr int KSTEPS = DP / 16;
@@ -167,17 +79,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, kBlockQ, DP>(ks, LD, q + base_q, q0, sq, d, vec);
   __syncthreads();
   uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int col = kk * 16 + 2 * c;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(&ks[(wr + g) * LD + col]);
-    qf[kk][1] =
-        *reinterpret_cast<const uint32_t*>(&ks[(wr + g + 8) * LD + col]);
-    qf[kk][2] =
-        *reinterpret_cast<const uint32_t*>(&ks[(wr + g) * LD + col + 8]);
-    qf[kk][3] =
-        *reinterpret_cast<const uint32_t*>(&ks[(wr + g + 8) * LD + col + 8]);
-  }
+  load_a_frags<T, KSTEPS, LD>(qf, ks, wr, g, c);
 
   float acc[DTILES][4];
 #pragma unroll
@@ -198,18 +100,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // S = Q K^T for this warp's 16 rows x 64 keys
     float s[NTILES][4];
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const T* krow = &ks[(nt * 8 + g) * LD];
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(&krow[kk * 16 + 2 * c]);
-        b[1] = *reinterpret_cast<const uint32_t*>(&krow[kk * 16 + 8 + 2 * c]);
-        TypeOps<T>::mma(s[nt], qf[kk], b);
-      }
-    }
+    mma_abt<T, KSTEPS, LD, NTILES>(s, qf, ks, g, c);
 
     // scale into log2 units, mask the key tail, row max over the tile
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -223,10 +114,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
     // every tile holds at least one valid key, so the new max is finite
     const float mn0 = fmaxf(m0, mx0);
     const float mn1 = fmaxf(m1, mx1);
@@ -255,71 +144,49 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc[dn][3] *= alpha1;
     }
 
-    // O += P V: the S accumulator layout of key tiles (2j, 2j+1) is the A
-    // fragment layout of a 16-deep k-step
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      uint32_t a[4];
-      a[0] = TypeOps<T>::pack(s[2 * j][0], s[2 * j][1]);
-      a[1] = TypeOps<T>::pack(s[2 * j][2], s[2 * j][3]);
-      a[2] = TypeOps<T>::pack(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = TypeOps<T>::pack(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const T* vrow = &vs[(j * 16 + (lane & 15)) * LD];
-#pragma unroll
-      for (int dn = 0; dn < DTILES; ++dn) {
-        uint32_t b[2];
-        ldmatrix_x2_trans(b[0], b[1], vrow + dn * 8);
-        TypeOps<T>::mma(acc[dn], a, b);
-      }
-    }
+    // O += P V: the S accumulators of key tiles (2j, 2j+1) are the A
+    // fragment of a 16-deep k-step
+    mma_pv<T, DTILES, LD, NTILES>(acc, s, vs, lane);
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
 
   const int r0 = q0 + wr + g;
   const int r1 = r0 + 8;
-  T* out = o + base_q;
+  if (kLse && c == 0) {
+    // m is in log2 units of the scaled scores; lse in natural-log units
+    float* out = lse + static_cast<int64_t>(bh) * sq;
+    if (r0 < sq) out[r0] = m0 * kLn2 + logf(l0);
+    if (r1 < sq) out[r1] = m1 * kLn2 + logf(l1);
+  }
+  // store acc / l: fold the two row scales into the accumulators first
 #pragma unroll
   for (int dn = 0; dn < DTILES; ++dn) {
-    const int col = dn * 8 + 2 * c;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (col + e < d) {
-        if (r0 < sq) {
-          out[static_cast<int64_t>(r0) * d + col + e] =
-              TypeOps<T>::from_float(acc[dn][e] * inv0);
-        }
-        if (r1 < sq) {
-          out[static_cast<int64_t>(r1) * d + col + e] =
-              TypeOps<T>::from_float(acc[dn][2 + e] * inv1);
-        }
-      }
-    }
+    acc[dn][0] /= l0;
+    acc[dn][1] /= l0;
+    acc[dn][2] /= l1;
+    acc[dn][3] /= l1;
   }
+  store_strip<T, DTILES>(o + base_q, acc, 1.0f, q0 + wr, sq, d, g, c);
 }
 
 // ------------------------------------------------------ fp32 SIMT kernel
 
-constexpr int kF32BlockQ = 32;   // q rows per CTA, 4 threads per row
-constexpr int kF32BlockK = 32;   // key rows per shared-memory tile
-
-template <int DP>
+template <int DP, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int sq, int sk, int d, int q_tiles, float scale_log2,
-                     bool vec) {
+                     float* __restrict__ lse, int sq, int sk, int d,
+                     int q_tiles, float scale_log2, bool vec) {
   constexpr int PER = DP / 4;  // columns per thread: j * 4 + t4
-  __shared__ __align__(16) float ks[kF32BlockK * DP];
-  __shared__ __align__(16) float vs[kF32BlockK * DP];
+  __shared__ __align__(16) float ks[kF32Block * DP];
+  __shared__ __align__(16) float vs[kF32Block * DP];
 
   const int bh = blockIdx.x / q_tiles;
-  const int row = (blockIdx.x % q_tiles) * kF32BlockQ + threadIdx.x / 4;
+  const int row = (blockIdx.x % q_tiles) * kF32Block + threadIdx.x / 4;
   const int t4 = threadIdx.x % 4;
   const int64_t base_q = static_cast<int64_t>(bh) * sq * d;
   const int64_t base_kv = static_cast<int64_t>(bh) * sk * d;
@@ -335,52 +202,24 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   float m = -INFINITY, l = 0.0f;
 
-  const int k_tiles = (sk + kF32BlockK - 1) / kF32BlockK;
+  const int k_tiles = (sk + kF32Block - 1) / kF32Block;
   for (int kt = 0; kt < k_tiles; ++kt) {
-    const int k0 = kt * kF32BlockK;
+    const int k0 = kt * kF32Block;
     __syncthreads();
-    if (vec) {
-      constexpr int kChunks = DP / 4;
-      for (int i = threadIdx.x; i < kF32BlockK * kChunks; i += blockDim.x) {
-        const int r = i / kChunks;
-        const int col = (i % kChunks) * 4;
-        float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 vv4 = kv4;
-        if (k0 + r < sk && col < d) {
-          const int64_t off = base_kv + static_cast<int64_t>(k0 + r) * d + col;
-          kv4 = *reinterpret_cast<const float4*>(k + off);
-          vv4 = *reinterpret_cast<const float4*>(v + off);
-        }
-        *reinterpret_cast<float4*>(&ks[r * DP + col]) = kv4;
-        *reinterpret_cast<float4*>(&vs[r * DP + col]) = vv4;
-      }
-    } else {
-      for (int i = threadIdx.x; i < kF32BlockK * DP; i += blockDim.x) {
-        const int r = i / DP;
-        const int col = i % DP;
-        float kv1 = 0.0f, vv1 = 0.0f;
-        if (k0 + r < sk && col < d) {
-          const int64_t off = base_kv + static_cast<int64_t>(k0 + r) * d + col;
-          kv1 = k[off];
-          vv1 = v[off];
-        }
-        ks[i] = kv1;
-        vs[i] = vv1;
-      }
-    }
+    load_tile_f32<DP>(ks, k + base_kv, k0, sk, d, vec);
+    load_tile_f32<DP>(vs, v + base_kv, k0, sk, d, vec);
     __syncthreads();
 
-    float s[kF32BlockK];
+    float s[kF32Block];
     float mx = -INFINITY;
 #pragma unroll
-    for (int kj = 0; kj < kF32BlockK; ++kj) {
+    for (int kj = 0; kj < kF32Block; ++kj) {
       float part = 0.0f;
 #pragma unroll
       for (int j = 0; j < PER; ++j) {
         part = fmaf(qr[j], ks[kj * DP + j * 4 + t4], part);
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part = quad_sum(part);
       s[kj] = (k0 + kj < sk) ? part : -INFINITY;
       mx = fmaxf(mx, s[kj]);
     }
@@ -391,7 +230,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < PER; ++j) acc[j] *= alpha;
 #pragma unroll
-    for (int kj = 0; kj < kF32BlockK; ++kj) {
+    for (int kj = 0; kj < kF32Block; ++kj) {
       const float p = exp2f(s[kj] - mn);
       ps += p;
 #pragma unroll
@@ -403,7 +242,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (row < sq) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
+    l = fmaxf(l, 1e-30f);
+    const float inv = 1.0f / l;
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int col = j * 4 + t4;
@@ -411,44 +251,80 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         o[base_q + static_cast<int64_t>(row) * d + col] = acc[j] * inv;
       }
     }
+    if (kLse && t4 == 0) {
+      lse[static_cast<int64_t>(bh) * sq + row] = m * kLn2 + logf(l);
+    }
   }
 }
 
-template <typename T, int DP>
-void launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int sk, int d, float scale_log2, bool vec,
-                cudaStream_t stream) {
-  const int q_tiles = (sq + kBlockQ - 1) / kBlockQ;
-  flash_fwd_mma_kernel<T, DP><<<q_tiles * bh, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, q_tiles,
-      scale_log2, vec);
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  int bh, sq, sk, d, dtype;
+  float scale_log2;
+  bool vec16, vec_f32;
+  cudaStream_t stream;
+};
+
+template <typename T, int DP, bool kLse>
+void launch_mma(const FwdArgs& a) {
+  const int q_tiles = (a.sq + kBlockQ - 1) / kBlockQ;
+  flash_fwd_mma_kernel<T, DP, kLse><<<q_tiles * a.bh, kThreads, 0,
+                                      a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.sq, a.sk,
+      a.d, q_tiles, a.scale_log2, a.vec16);
 }
 
-template <int DP>
-void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int sk, int d, float scale_log2, bool vec,
-                cudaStream_t stream) {
-  const int q_tiles = (sq + kF32BlockQ - 1) / kF32BlockQ;
-  flash_fwd_f32_kernel<DP><<<q_tiles * bh, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, d,
-      q_tiles, scale_log2, vec);
+template <int DP, bool kLse>
+void launch_f32(const FwdArgs& a) {
+  const int q_tiles = (a.sq + kF32Block - 1) / kF32Block;
+  flash_fwd_f32_kernel<DP, kLse><<<q_tiles * a.bh, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.sq,
+      a.sk, a.d, q_tiles, a.scale_log2, a.vec_f32);
 }
 
+template <bool kLse>
+struct LaunchFwd {
+  template <int DP>
+  static void run(const FwdArgs& a) {
+    if (a.dtype == 1) {
+      launch_mma<__nv_bfloat16, DP, kLse>(a);
+    } else if (a.dtype == 2) {
+      launch_mma<__half, DP, kLse>(a);
+    } else {
+      launch_f32<DP, kLse>(a);
+    }
+  }
+};
+
 template <int DP>
-void launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                  void* o, int bh, int sq, int sk, int d, float scale_log2,
-                  bool vec16, bool vec_f32, cudaStream_t stream) {
-  if (dtype == 1) {
-    launch_mma<__nv_bfloat16, DP>(q, k, v, o, bh, sq, sk, d, scale_log2,
-                                  vec16, stream);
-  } else if (dtype == 2) {
-    launch_mma<__half, DP>(q, k, v, o, bh, sq, sk, d, scale_log2, vec16,
-                           stream);
+void fwd_plain(const FwdArgs& a) { LaunchFwd<false>::run<DP>(a); }
+template <int DP>
+void fwd_lse(const FwdArgs& a) { LaunchFwd<true>::run<DP>(a); }
+
+int forward(const void* q, const void* k, const void* v, void* o, float* lse,
+            int bh, int sq, int sk, int d, float sm_scale, int dtype,
+            void* stream) {
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 128 || dtype < 0 ||
+      dtype > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool aligned = aligned16(q) && aligned16(k) && aligned16(v);
+  FwdArgs a{q, k, v, o, lse, bh, sq, sk, d, dtype, sm_scale * kLog2e,
+            aligned && d % 8 == 0,   // 8 x 16-bit per uint4
+            aligned && d % 4 == 0,   // 4 x fp32 per float4
+            static_cast<cudaStream_t>(stream)};
+  if (lse != nullptr) {
+    CID_DISPATCH_HEAD_DIM(d, fwd_lse, a);
   } else {
-    launch_f32<DP>(q, k, v, o, bh, sq, sk, d, scale_log2, vec_f32, stream);
+    CID_DISPATCH_HEAD_DIM(d, fwd_plain, a);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -460,30 +336,16 @@ extern "C" int cid_flash_attention_forward(const void* q, const void* k,
                                            int sq, int sk, int d,
                                            float sm_scale, int dtype,
                                            void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 128 || dtype < 0 ||
-      dtype > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const float scale_log2 = sm_scale * kLog2e;
-  const uintptr_t addr_or = reinterpret_cast<uintptr_t>(q) |
-                            reinterpret_cast<uintptr_t>(k) |
-                            reinterpret_cast<uintptr_t>(v);
-  const bool aligned = (addr_or & 15u) == 0;
-  const bool vec16 = aligned && d % 8 == 0;   // 8 x 16-bit per uint4
-  const bool vec_f32 = aligned && d % 4 == 0;  // 4 x fp32 per float4
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 48) {
-    launch_dtype<48>(dtype, q, k, v, o, bh, sq, sk, d, scale_log2, vec16,
-                     vec_f32, s);
-  } else if (d <= 64) {
-    launch_dtype<64>(dtype, q, k, v, o, bh, sq, sk, d, scale_log2, vec16,
-                     vec_f32, s);
-  } else if (d <= 80) {
-    launch_dtype<80>(dtype, q, k, v, o, bh, sq, sk, d, scale_log2, vec16,
-                     vec_f32, s);
-  } else {
-    launch_dtype<128>(dtype, q, k, v, o, bh, sq, sk, d, scale_log2, vec16,
-                      vec_f32, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return forward(q, k, v, o, nullptr, bh, sq, sk, d, sm_scale, dtype, stream);
+}
+
+// K2: as cid_flash_attention_forward, and lse (bh, sq) fp32.
+extern "C" int cid_flash_attention_forward_lse(const void* q, const void* k,
+                                               const void* v, void* o,
+                                               void* lse, int bh, int sq,
+                                               int sk, int d, float sm_scale,
+                                               int dtype, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, o, static_cast<float*>(lse), bh, sq, sk, d,
+                 sm_scale, dtype, stream);
 }

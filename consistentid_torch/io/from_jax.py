@@ -21,7 +21,7 @@ import torch
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no torch twin
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    return torch.from_numpy(np.array(a))   # a writable copy
 
 
 def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
 from .clip import CLIPTextEncoder, CLIPVisionEncoder
 from .lora import fold_lora_params
-from .unet import UNet
+from .unet import UNET_LAYER_NAMES, UNet, localization_layer_names
 from .vae import AutoencoderKL

@@ -106,7 +106,13 @@ class LoRADelta(nn.Module):
 class Attention(nn.Module):
     """UNet attention with optional LoRA on all four projections and the
     decoupled IP-adapter branch over the last `ip_num_tokens` context
-    tokens (reference attention.py:90-294)."""
+    tokens (reference attention.py:90-294).
+
+    With `capture_probs=True` the call returns `(out, probs)`: the fp32
+    softmax of the base attention (plain torch, never the flash kernels),
+    and with `capture_idx` (B, N) only those N context columns of it,
+    gathered here so the full map never leaves the layer (JAX `:306-314`:
+    the localization loss normalises after gathering, so it is exact)."""
 
     def __init__(self, query_dim: int, heads: int,
                  context_dim: Optional[int] = None, lora_rank: int = 0,
@@ -137,7 +143,8 @@ class Attention(nn.Module):
         return y
 
     def forward(self, x, context=None, lora_scale: float = 1.0,
-                ip_scale: float = 1.0):
+                ip_scale: float = 1.0, capture_probs: bool = False,
+                capture_idx: Optional[torch.Tensor] = None):
         ctx = x if context is None else context
         ip_ctx = None
         if self.ip_num_tokens > 0:
@@ -146,15 +153,25 @@ class Attention(nn.Module):
         q = self._proj("to_q", x, lora_scale)
         k = self._proj("to_k", ctx, lora_scale)
         v = self._proj("to_v", ctx, lora_scale)
-        qh = split_heads(q, self.heads)
-        out = merge_heads(dot_product_attention(
-            qh, split_heads(k, self.heads), split_heads(v, self.heads)))
+        qh, kh, vh = (split_heads(t, self.heads) for t in (q, k, v))
+        probs = None
+        if capture_probs:
+            out, probs = dot_product_attention(qh, kh, vh, return_probs=True)
+            if capture_idx is not None:
+                b, h, sq, _ = probs.shape
+                idx = capture_idx.long()[:, None, None, :].expand(
+                    b, h, sq, capture_idx.shape[-1])
+                probs = probs.gather(3, idx)
+        else:
+            out = dot_product_attention(qh, kh, vh)
+        out = merge_heads(out)
         if ip_ctx is not None:
             ip_out = dot_product_attention(
                 qh, split_heads(self.to_k_ip(ip_ctx), self.heads),
                 split_heads(self.to_v_ip(ip_ctx), self.heads), use_flash=False)
             out = out + ip_scale * merge_heads(ip_out)
-        return self._proj("to_out", out, lora_scale)
+        y = self._proj("to_out", out, lora_scale)
+        return (y, probs) if capture_probs else y
 
 
 class GEGLUFeedForward(nn.Module):
@@ -182,11 +199,19 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context, lora_scale=1.0, ip_scale=1.0):
+    def forward(self, x, context, lora_scale=1.0, ip_scale=1.0,
+                capture_probs=False, capture_idx=None):
+        """With capture_probs, returns (x, attn2's captured probs)."""
         x = x + self.attn1(self.norm1(x), lora_scale=lora_scale)
-        x = x + self.attn2(self.norm2(x), context, lora_scale=lora_scale,
-                           ip_scale=ip_scale)
-        return x + self.ff(self.norm3(x))
+        h = self.attn2(self.norm2(x), context, lora_scale=lora_scale,
+                       ip_scale=ip_scale, capture_probs=capture_probs,
+                       capture_idx=capture_idx)
+        probs = None
+        if capture_probs:
+            h, probs = h
+        x = x + h
+        x = x + self.ff(self.norm3(x))
+        return (x, probs) if capture_probs else x
 
 
 class Transformer2D(nn.Module):
@@ -206,11 +231,18 @@ class Transformer2D(nn.Module):
                 ip_num_tokens=ip_num_tokens))
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context, lora_scale=1.0, ip_scale=1.0):
+    def forward(self, x, context, lora_scale=1.0, ip_scale=1.0,
+                capture_probs=False, capture_idx=None):
+        """With capture_probs, returns (out, {"blocks_i": probs})."""
         b, c, hh, ww = x.shape
         h = self.proj_in(self.norm(x))
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        captured = {}
         for i in range(self.depth):
-            h = getattr(self, f"blocks_{i}")(h, context, lora_scale, ip_scale)
+            h = getattr(self, f"blocks_{i}")(h, context, lora_scale, ip_scale,
+                                             capture_probs, capture_idx)
+            if capture_probs:
+                h, captured[f"blocks_{i}"] = h
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
-        return self.proj_out(h) + x
+        out = self.proj_out(h) + x
+        return (out, captured) if capture_probs else out

@@ -4,8 +4,17 @@ hooks: LoRA on every attention projection and decoupled-IP cross-attention.
 Counterpart of the JAX package's models/unet.py at the SD1.5 layout, without
 the DeepCache split, ControlNet residuals or SDXL text_time embeddings. The
 public forward takes and returns NHWC latents and runs NCHW inside.
+
+Attention-probability capture for the facial localization loss follows the
+JAX package: `capture_layers` names blocks of UNET_LAYER_NAMES (`up_i` counts
+from the deepest up block, so `up_2` is level 1), and every attn2 in them
+returns its softmax, column-gathered at `capture_cols`. The forward then
+returns `(out, {module path: probs})`, keyed as the JAX package's sown
+tensors are; training.losses.collect_attn_probs orders them as it does.
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -14,6 +23,16 @@ from torch import nn
 from ..core.config import UNetConfig
 from .layers import (GN_EPS, Downsample, ResnetBlock, TimestepEmbedding,
                      Transformer2D, Upsample, timestep_embedding)
+
+UNET_LAYER_NAMES = ("down_0", "down_1", "down_2", "mid", "up_1", "up_2",
+                    "up_3")
+
+
+def localization_layer_names(num_layers: int) -> Tuple[str, ...]:
+    """The centred window of `num_layers` capture blocks (reference
+    functions.py:266-278): 5 -> down_1, down_2, mid, up_1, up_2."""
+    start = (len(UNET_LAYER_NAMES) - num_layers) // 2
+    return UNET_LAYER_NAMES[start:start + num_layers]
 
 
 class UNet(nn.Module):
@@ -73,9 +92,12 @@ class UNet(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, lora_scale: float = 1.0,
-                ip_scale: float = 1.0) -> torch.Tensor:
+                ip_scale: float = 1.0, capture_layers: Sequence[str] = (),
+                capture_cols: Optional[torch.Tensor] = None):
         """sample (B, H, W, C) latents, timesteps (B,) or scalar, context
-        (B, L + ip_num_tokens, cross_attention_dim) -> (B, H, W, C_out)."""
+        (B, L + ip_num_tokens, cross_attention_dim) -> (B, H, W, C_out);
+        with capture_layers, (out, {module path: probs (B, H, Sq, N or K)
+        fp32})."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         n = len(cfg.block_out_channels)
@@ -86,8 +108,17 @@ class UNet(nn.Module):
         temb = self.time_embedding(temb.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
 
-        def attn(name, h):
-            return getattr(self, name)(h, ctx, lora_scale, ip_scale)
+        captured = {}
+
+        def attn(name, block, h):
+            if block not in capture_layers:
+                return getattr(self, name)(h, ctx, lora_scale, ip_scale)
+            h, probs = getattr(self, name)(h, ctx, lora_scale, ip_scale,
+                                           True, capture_cols)
+            for sub, p in probs.items():
+                # keyed by the path the JAX package sows the tensor under
+                captured[f"['{name}']['{sub}']['attn2']"] = p
+            return h
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         skips = [h]
@@ -95,14 +126,14 @@ class UNet(nn.Module):
             for j in range(cfg.layers_per_block):
                 h = getattr(self, f"down_{level}_resnet_{j}")(h, temb)
                 if cfg.down_block_has_attn[level]:
-                    h = attn(f"down_{level}_attn_{j}", h)
+                    h = attn(f"down_{level}_attn_{j}", f"down_{level}", h)
                 skips.append(h)
             if level < n - 1:
                 h = getattr(self, f"down_{level}_downsample")(h)
                 skips.append(h)
 
         h = self.mid_resnet_0(h, temb)
-        h = attn("mid_attn", h)
+        h = attn("mid_attn", "mid", h)
         h = self.mid_resnet_1(h, temb)
 
         for i in range(n):
@@ -111,9 +142,9 @@ class UNet(nn.Module):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_{i}_resnet_{j}")(h, temb)
                 if cfg.down_block_has_attn[level]:
-                    h = attn(f"up_{i}_attn_{j}", h)
+                    h = attn(f"up_{i}_attn_{j}", f"up_{i}", h)
             if i < n - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return h.permute(0, 2, 3, 1)
+        out = self.conv_out(F.silu(self.conv_norm_out(h))).permute(0, 2, 3, 1)
+        return (out, captured) if capture_layers else out

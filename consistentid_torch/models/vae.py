@@ -148,13 +148,17 @@ class AutoencoderKL(nn.Module):
         return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, x: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Scaled latents: the mean, or a sample when a generator is given."""
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Scaled latents: the mean, or a posterior sample when a generator
+        or the standard-normal `noise` itself (NHWC, the latents' shape) is
+        given."""
         mean, logvar = self.encode_moments(x)
-        if generator is not None:
+        if noise is None and generator is not None:
             noise = torch.randn(mean.shape, generator=generator,
                                 device=mean.device, dtype=mean.dtype)
-            mean = mean + torch.exp(0.5 * logvar) * noise
+        if noise is not None:
+            mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
         return mean * self.config.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Attention dispatch: the flash kernel (K1) for large attention maps, plain
+"""Attention dispatch: flash attention for large attention maps, plain
 torch elsewhere and whenever the softmax probabilities must be returned.
 
 Counterpart of the JAX package's ops/attention.py, with the same cutover:
 attention goes to `flash_attention` when Sq * Sk >= 1024 * 1024 per head,
-which at 512 px is exactly the UNet self-attention at levels 0 and 1. On a
-CPU tensor `flash_attention` runs its plain version, so the dispatch is the
-same on both devices.
+which at 512 px is exactly the UNet self-attention at levels 0 and 1. There
+it runs K1 without autograd and K2 forward / K3, K4 backward under it. On a
+CPU tensor `flash_attention` runs the plain versions, so the dispatch and the
+gradient are the same on both devices.
 """
 from __future__ import annotations
 

@@ -66,7 +66,9 @@ class SD15Bundle(nn.Module):
     text_encoder, image_encoder, proj, facial_encoder), so
     `load_state_dict(params_from_jax(tree))` carries JAX weights across.
     Modules are built on the meta device and materialised once on `device`
-    in `dtype`, then initialised by `init_params`.
+    in `dtype`, then initialised by `init_params`. Training keeps the
+    trainable subset as fp32 masters (`training.create_train_state`);
+    `call` runs a submodule in `dtype` either way.
     """
 
     def __init__(self, unet_config: UNetConfig,
@@ -149,13 +151,27 @@ class SD15Bundle(nn.Module):
         for p in self.parameters():
             p.normal_(0.0, std, generator=generator)
 
+    def call(self, module: nn.Module, *args, **kwargs):
+        """Run a submodule in the bundle's compute dtype. Parameters stored
+        in another dtype (the fp32 masters of the trainable subset, see
+        training/train_step.py) are cast at use, and their gradients flow
+        back to the masters in fp32, as flax casts fp32 weights at use."""
+        cast = {name: p.to(self.dtype) for name, p in
+                module.named_parameters() if p.dtype != self.dtype}
+        if not cast:
+            return module(*args, **kwargs)
+        return torch.func.functional_call(module, cast, args, kwargs)
+
     def infer_unet(self, lora_scale: float) -> UNet:
         """The UNet the denoise loop runs: LoRA folded into the base
-        projections once per call, so every step is LoRA-free. Unfolded
-        tensors are shared with `self.unet`, not copied."""
-        if self.unet_config.lora_rank == 0:
+        projections once per call, so every step is LoRA-free, and every
+        weight in the bundle's dtype. Unfolded tensors of that dtype are
+        shared with `self.unet`, not copied."""
+        if self.unet_config.lora_rank == 0 and all(
+                p.dtype == self.dtype for p in self.unet.parameters()):
             return self.unet
-        folded = fold_lora_params(self.unet.state_dict(), lora_scale)
+        folded = {k: v.to(self.dtype) for k, v in fold_lora_params(
+            self.unet.state_dict(), lora_scale).items()}
         with torch.device("meta"):
             unet = UNet(dataclasses.replace(self.unet_config, lora_rank=0))
         unet.load_state_dict(folded, assign=True)
@@ -294,17 +310,16 @@ class ConsistentIDPipeline:
         zero_regions = zero_emb[:, None].expand_as(region_embs)
 
         faceid = cond["faceid_embeds"].to(dtype)
-        faceid_tokens = b.proj(faceid, face_emb, shortcut=a.shortcut,
+        faceid_tokens = b.call(b.proj, faceid, face_emb, shortcut=a.shortcut,
                                scale=a.shortcut_scale)
-        uncond_faceid_tokens = b.proj(
-            torch.zeros_like(faceid), zero_emb.expand(bs, -1, -1),
+        uncond_faceid_tokens = b.call(
+            b.proj, torch.zeros_like(faceid), zero_emb.expand(bs, -1, -1),
             shortcut=a.shortcut, scale=a.shortcut_scale)
 
-        fused = b.facial_encoder(enc_marked, region_embs, cond["facial_idx"],
-                                 cond["facial_idx_mask"])
-        uncond_fused = b.facial_encoder(enc_negative, zero_regions,
-                                        cond["facial_idx"],
-                                        cond["facial_idx_mask"])
+        fused = b.call(b.facial_encoder, enc_marked, region_embs,
+                       cond["facial_idx"], cond["facial_idx_mask"])
+        uncond_fused = b.call(b.facial_encoder, enc_negative, zero_regions,
+                              cond["facial_idx"], cond["facial_idx_mask"])
 
         augmented = torch.cat([fused, faceid_tokens], dim=1)
         null = torch.cat([uncond_fused, uncond_faceid_tokens], dim=1)

@@ -12,12 +12,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
+import torch
+
 from ..core.config import SchedulerConfig
 
 
 @dataclass(frozen=True)
 class NoiseSchedule:
-    """Training-time forward process table (fp32 numpy)."""
+    """Training-time forward process: the fp32 numpy table and q-sampling
+    on torch tensors."""
 
     alphas_cumprod: np.ndarray  # (num_train_timesteps,)
     config: SchedulerConfig
@@ -36,6 +39,26 @@ class NoiseSchedule:
             raise ValueError(config.beta_schedule)
         acp = np.cumprod(1.0 - betas).astype(np.float32)
         return NoiseSchedule(alphas_cumprod=acp, config=config)
+
+    def _coefs(self, x0: torch.Tensor, t: torch.Tensor):
+        acp = torch.as_tensor(self.alphas_cumprod, device=x0.device)[
+            t.long()].to(x0.dtype)
+        shape = (-1,) + (1,) * (x0.dim() - 1)
+        return torch.sqrt(acp).reshape(shape), \
+            torch.sqrt(1.0 - acp).reshape(shape)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(acp_t) x0 + sqrt(1 - acp_t) eps, with the
+        coefficients in x0's dtype."""
+        a, s = self._coefs(x0, t)
+        return a * x0 + s * noise
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: sqrt(acp_t) eps - sqrt(1 - acp_t) x0."""
+        a, s = self._coefs(x0, t)
+        return a * noise - s * x0
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Tiny random-weight bundles and a synthetic tokenizer for tests and smoke
-runs. `tiny_bundle` has the sizes of the JAX package's tiny SD1.5 bundle, so
-the same parameters load into both."""
+runs, and the limits the card checks hold the flash kernels to.
+`tiny_bundle` has the sizes of the JAX package's tiny SD1.5 bundle, so the
+same parameters load into both."""
 from __future__ import annotations
 
 from typing import Union
@@ -9,6 +10,36 @@ import torch
 
 from .core import (AdapterConfig, CLIPTextConfig, CLIPVisionConfig,
                    UNetConfig, VAEConfig)
+
+# Limits of the card checks (chip_smoke.py, tests/test_torch_cuda.py) on a
+# flash kernel's output against its plain version, as relative L2 errors
+# ||kernel - plain|| / ||plain|| over the whole tensor, set just above what
+# the kernels read on an H100 and below what a control reads (PERF.md).
+# 16-bit inputs: the kernels round P (and dS) to the input type before
+# their products and every output once more; bf16 reads up to 2.45e-3 on
+# random inputs, and the plain version with its last key or query tile
+# dropped (`drop_last_tile`) 0.11 and more. fp32: the SIMT kernels,
+# summation order only (up to 9.1e-7).
+KERNEL_REL_L2_16BIT = 4e-3
+KERNEL_REL_L2_FP32 = 1e-5
+# K3 and K4 against the plain backward at their own precision
+# (`flash_attention_bwd_plain(..., round_to=dtype)`, outputs rounded to
+# dtype): only fp32 summation order, flipping a rounding here and there
+# (up to 3.3e-4 read; the dropped-tile controls 0.057 and more).
+KERNEL_REL_L2_SAME_PRECISION = 1e-3
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| / ||ref|| over the whole tensor, in fp32."""
+    ref = ref.float()
+    return ((got.float() - ref).norm() / ref.norm()).item()
+
+
+def drop_last_tile(n: int, tile: int = 64) -> int:
+    """How many of n rows a kernel keeps that skips its last `tile`-row
+    tile, or the ragged tail past the last whole tile: the control the card
+    checks must tell apart from the kernel."""
+    return (n - 1) // tile * tile
 
 
 def tiny_bundle(device: Union[str, torch.device] = "cuda",

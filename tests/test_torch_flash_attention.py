@@ -68,9 +68,9 @@ def test_dispatch_threshold(monkeypatch, sq, sk, flash):
 
 def test_cpu_tensors_take_plain_path():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 70, 90, 40))
-    before = port_flash.flash_attention.launches
+    before = port_flash.flash_attention_fwd.launches
     out = port_flash.flash_attention(q, k, v)
-    assert port_flash.flash_attention.launches == before
+    assert port_flash.flash_attention_fwd.launches == before
     ref = port_attention.reference_attention(q, k, v)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
@@ -88,7 +88,9 @@ def test_cuda_source_and_build_command():
     src = build.CSRC_DIR / "flash_attention.cu"
     text = src.read_text()
     assert "cid_flash_attention_forward" in text
-    assert "mma.sync.aligned.m16n8k16" in text
+    assert '#include "flash_common.cuh"' in text
+    assert "mma.sync.aligned.m16n8k16" in (
+        build.CSRC_DIR / "flash_common.cuh").read_text()
     cmd = build.nvcc_command("nvcc", [src], build.BUILD_DIR / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -141,14 +141,14 @@ def test_generate_core_same_latents(pipes, jax_run, monkeypatch):
         return real(q, k, v, sm_scale)
 
     monkeypatch.setattr(port_flash, "flash_attention", spy)
-    before = real.launches
+    before = port_flash.flash_attention_fwd.launches
     got = ppipe._generate_core(ppipe.device_cond(jcond),
                                torch.from_numpy(latents), GUIDANCE, MERGE,
                                STEPS, "ddim", 1.0, 1.0)
     assert got.shape == want.shape == (2, 64, 64, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
     assert calls == [(4, 2, 1024, 16)] * 9
-    assert real.launches == before
+    assert port_flash.flash_attention_fwd.launches == before
 
 
 def test_generate_returns_uint8(pipes):
