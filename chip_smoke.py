@@ -16,25 +16,46 @@ Phases, each printing its result; any failure exits non-zero:
   4. serving: a full-width SD1.5 ConsistentID bundle (bf16, LoRA rank 128,
      4 IP tokens, ViT-H, CLIP-L, full VAE; random weights from a seed) runs
      generate() at batch 4, 50 DDIM steps, 512 px; checks the output and
-     that K1 was launched 500 times;
+     that K1 was launched 500 times and K2-K6 none;
   5. serving path checks: one full-width UNet call through K1 and through
      its plain version; one UNet call under torch.profiler;
   6. training: the same bundle with fp32 trainable masters takes 1 warm-up
      and 5 timed AdamW steps of the adapter objective (batch 2, 512 px,
      synthetic batch); checks finite losses, a nonzero first gradient on
      every trainable leaf, moved trainable and bit-identical frozen
-     parameters, and 10 launches each of K2, K3 and K4 (and none of K1) per
-     step; one step under torch.profiler;
+     parameters, and 10 launches each of K2, K3 and K4 (and none of K1,
+     K5, K6) per step; one step under torch.profiler;
   7. training path checks: one full-width UNet forward and backward through
      K2-K4, each of its 10 calls held against the plain versions on its own
      inputs (K3 and K4 at their own precision) and so are the LoRA leaves
      each call feeds, and the trainable gradients against a second pass
      through the plain versions; the tiny fp32 bundle's loss and gradients
      on the card against the CPU;
-  8. the tiny fp32 bundle's generate core on the card against the CPU.
+  8. the tiny fp32 bundle's generate core on the card against the CPU;
+  9. K5 and K6 (fused BatchNorm + activation) against their plain versions
+     at BiSeNet's stem shapes and at ragged shapes, all four activations,
+     by relative L2 (controls: the last chunk of rows not summed, the last
+     channels left unnormalized), timed beside their bounds and the library
+     calls (torch.var_mean; F.batch_norm then the activation), each on
+     copies of its input in turn, so that it reads them from HBM;
+ 10. perception at full width, fp32: SCRFD-10g at 640, iresnet50 at 112,
+     BiSeNet with 19 classes at 512 (random weights from a seed) on the
+     face; each hook timed; the card against the CPU (TF32 off);
+ 11. generate from the photo alone: the serving bundle with the face parser,
+     the face embedder and a full-width safety checker (ViT-L/14, 24
+     layers) runs the headline request with no injected labels or
+     embedding; checks 500 K1 launches (none of K2-K6) and a (4,) flag
+     array.
+Phase 9 runs after phase 3, phases 10 and 11 after phase 5 (before the
+bundle is trained).
+Kernel times on the card are `cuda_ms`: CUDA events around calls the host
+queued behind a sleep kernel, so the host's time per call is not counted;
+the perception networks alone are timed by the same events without the
+sleep (on an H100 one iresnet50 call could not be queued behind one).
 The last three lines are the kernels' JSON ({"kernels": [...]}), the
 nvidia-smi reading and {"ok": true, "device": {...}}.
 """
+import itertools
 import json
 import math
 import subprocess
@@ -88,18 +109,57 @@ def check(what: str, rel: float, control, limit: float) -> None:
             f"(last key or query tile dropped) {control:.4g}")
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, queued: bool = True) -> float:
+    """The card's time per call of fn (ms), the host's time hidden: a sleep
+    kernel holds the stream while the host queues calls, which then run back
+    to back between two CUDA events. (At small shapes a wrapper's host time
+    is many times its kernel's.) The sleep is sized from a timed call's host
+    time. If the card woke before the host had queued every call (the host
+    was slow, or blocked on the stream's queue of about a thousand pending
+    kernels), the reading would hold host time: the calls are then queued
+    in rounds of half as many, each behind its own sleep, down to one.
+    queued=False: no sleep, so the time between the events holds the
+    host's waits too (for a network of hundreds of kernels a call, which
+    the host may not queue behind a sleep)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    if not queued:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    per_round = iters
+    while True:
+        total_ms, done = 0.0, 0
+        while done < iters:
+            n = min(per_round, iters - done)
+            # cycles of the sleep kernel: an H100 SXM clocks at most 1.98 GHz
+            torch.cuda._sleep(int((2 * host_ms * n + 10) * 1.98e6))
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            woke = start.query()     # the card reached the first call already
+            end.synchronize()
+            if woke:
+                break
+            total_ms += start.elapsed_time(end)
+            done += n
+        if done == iters:
+            return total_ms / iters
+        if per_round == 1:
+            raise AssertionError("the host could not queue one call within "
+                                 "its sleep")
+        per_round //= 2
 
 
 def attention_bound(b, h, sq, sk, d, itemsize, tensor_cores, kind="fwd"):
@@ -387,7 +447,7 @@ def main_path():
     log(f"warm-up generate (2 steps): {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    counters = launch_counters()
+    counters = launch_counters() + bn_counters()
     for w in counters:
         w.launches = 0
     torch.cuda.synchronize()
@@ -405,7 +465,7 @@ def main_path():
         raise AssertionError("non-finite decoded images")
     if launches != 500 or any(others):
         raise AssertionError(f"K1 launched {launches} times, expected 500 "
-                             "(10 per UNet call x 50 steps); K2-K4 "
+                             "(10 per UNet call x 50 steps); K2-K6 "
                              f"{others}, expected none")
     stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
     log(f"main path: generate batch 4, 50 DDIM steps, 512 px: "
@@ -413,7 +473,8 @@ def main_path():
         f"stages ms {stages}, peak memory {peak_gib:.2f} GiB, "
         f"K1 launches {launches}, image std {float(images.float().std()):.4f}")
     return bundle, dict(seconds=seconds, images_per_min=4 / seconds * 60,
-                        stage_ms=stages, peak_gib=peak_gib, launches=launches)
+                        stage_ms=stages, peak_gib=peak_gib, launches=launches,
+                        bn_launches=others[3:])
 
 
 def unet_path_check(bundle):
@@ -533,7 +594,7 @@ def training_path(bundle):
         raise AssertionError(f"{len(no_grad)} trainable leaves had a zero or "
                              f"non-finite first gradient: {no_grad[:5]}")
 
-    counters = launch_counters()
+    counters = launch_counters() + bn_counters()
     for w in counters:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -552,9 +613,10 @@ def training_path(bundle):
     s_per_step = seconds / n_steps
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if launches != [0, 10 * n_steps, 10 * n_steps, 10 * n_steps]:
-        raise AssertionError(f"launches K1-K4 over {n_steps} steps: "
-                             f"{launches}, expected 0 and 10 per step each")
+    if launches != [0] + [10 * n_steps] * 3 + [0, 0]:
+        raise AssertionError(f"launches K1-K6 over {n_steps} steps: "
+                             f"{launches}, expected 10 per step each of "
+                             "K2-K4 and none of K1, K5, K6")
     still = [n for n, p in state.trainable.items()
              if torch.equal(p, train0[n])]
     changed = [n for n, p in state.frozen.items()
@@ -567,7 +629,7 @@ def training_path(bundle):
     log(f"training path: batch 2, 512 px, {n_steps} steps after a "
         f"{warm_s:.2f} s warm-up: {s_per_step:.4f} s/step, "
         f"{2 / s_per_step:.3f} examples/s, peak memory {peak_gib:.2f} GiB, "
-        f"{n_train / 1e6:.1f} M trainable fp32 params, launches K1-K4 "
+        f"{n_train / 1e6:.1f} M trainable fp32 params, launches K1-K6 "
         f"{launches}, losses {[round(x, 5) for x in losses]}")
     return state, dict(s_per_step=s_per_step, examples_per_s=2 / s_per_step,
                        warmup_s=warm_s, peak_gib=peak_gib, losses=losses,
@@ -854,17 +916,13 @@ def tiny_train_check():
     import torch
     from consistentid_torch.core import SchedulerConfig, TrainConfig
     from consistentid_torch.sampling import NoiseSchedule
-    from consistentid_torch.testing import tiny_bundle
+    from consistentid_torch.testing import tf32_off, tiny_bundle
     from consistentid_torch.training import (Draws, consistentid_loss,
                                              create_train_state, make_draws,
                                              synthetic_batch)
     from consistentid_torch.training.train_step import batch_to_tensors
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off():
         schedule = NoiseSchedule.create(SchedulerConfig())
         batch = synthetic_batch(2, 64, 28, 16, seed=2)
         draws = make_draws(torch.Generator("cpu").manual_seed(6),
@@ -885,9 +943,6 @@ def tiny_train_check():
             grads = torch.autograd.grad(loss, list(state.trainable.values()))
             outs.append((loss.item(), [g.cpu() for g in grads],
                          [c.launches - b for c, b in zip(counters, before)]))
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
     (cpu_loss, cpu_g, cpu_n), (gpu_loss, gpu_g, gpu_n) = outs
     loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
     worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
@@ -915,13 +970,10 @@ def tiny_reference_check():
     from consistentid_torch.core import PipelineConfig
     from consistentid_torch.ops import flash_attention as fa
     from consistentid_torch.pipelines import ConsistentIDPipeline
-    from consistentid_torch.testing import synthetic_clip_tokenizer, tiny_bundle
+    from consistentid_torch.testing import (synthetic_clip_tokenizer,
+                                            tf32_off, tiny_bundle)
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off():
         cfg = PipelineConfig(height=64, width=64, num_inference_steps=3,
                              start_merge_step=1)
         rng = np.random.RandomState(0)
@@ -949,9 +1001,6 @@ def tiny_reference_check():
                                       "ddim", 1.0, 1.0)
             outs.append((img.float().cpu(),
                          fa.flash_attention_fwd.launches - before))
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
     (cpu_img, cpu_launches), (gpu_img, gpu_launches) = outs
     diff = (cpu_img - gpu_img).abs().max().item()
     # fp32 on both devices, different summation orders through 3 UNet
@@ -963,6 +1012,347 @@ def tiny_reference_check():
     if not ok:
         raise AssertionError("tiny card-vs-CPU check failed")
     return dict(max_abs_diff=diff, launches=gpu_launches)
+
+
+def bn_bound(rows, c, itemsize, kind):
+    """Least time (ms) of K5 ("moments") or K6 ("apply") and what bounds it.
+    Bytes: x read once (K5: mean and var written; K6: y written, four fp32
+    (C,) vectors read). Operations, fp32 outside the tensor cores: K5 an add
+    and an FMA per element (3 FLOPs), K6 a subtract, two multiplies, an add
+    and the activation (5 FLOPs counted)."""
+    n = rows * c
+    nbytes = {"moments": n * itemsize + 2 * c * 4,
+              "apply": 2 * n * itemsize + 4 * c * 4}[kind]
+    flops = {"moments": 3 * n, "apply": 5 * n}[kind]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
+
+
+def rotation(x, l2_bytes: int, most: int = 64):
+    """x and copies of it, enough that together they pass four times the
+    L2's bytes (at most `most`): a loop that takes them in turn reads each
+    from HBM. At the ragged shapes even `most` copies fit in the L2; there
+    the launch, not the bytes, sets the time."""
+    n = min(most, -(-4 * l2_bytes // (x.numel() * x.element_size())))
+    return [x] + [x.clone() for _ in range(n - 1)]
+
+
+def bn_kernel_phase():
+    """K5 and K6 against their plain versions on the card: mean and var, and
+    the output for each activation, by relative L2 with a control each;
+    then kernel, plain version and library call timed at each shape by
+    `cuda_ms`, on copies of x in turn (`rotation`; K6 with leaky_relu, the
+    JAX default). The (16, 224, 224, 64) fp32 case is
+    BiSeNet training's stem BatchNorm at batch 16, 448 px crops; the
+    (1, 256, 256, 64) cases the parser's stem at 512 px."""
+    import torch
+    import torch.nn.functional as F
+    from consistentid_torch.ops import fused_bn_act as bn
+    from consistentid_torch.testing import (KERNEL_BN_APPLY_REL_L2_16BIT,
+                                            KERNEL_BN_APPLY_REL_L2_FP32,
+                                            KERNEL_BN_MOMENTS_REL_L2,
+                                            moments_without_last_chunk,
+                                            rel_l2,
+                                            unnormalized_last_channels)
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    props = torch.cuda.get_device_properties(0)
+    sms, l2_bytes = props.multi_processor_count, props.L2_cache_size
+    cases = [
+        ("bisenet_train_stem", (16, 224, 224, 64), torch.float32, 20),
+        ("parser_stem_fp32", (1, 256, 256, 64), torch.float32, 100),
+        ("parser_stem_bf16", (1, 256, 256, 64), torch.bfloat16, 100),
+        ("ragged_c24", (2, 9, 7, 24), torch.float32, 100),
+        ("ragged_c19", (1, 33, 17, 19), torch.bfloat16, 100),
+    ]
+    rows_out = {"K5": [], "K6": []}
+    fused_launches = None
+    for name, shape, dtype, iters in cases:
+        c = shape[-1]
+        rows = math.prod(shape) // c
+        x = (torch.randn(shape, generator=gen, device="cuda")
+             + torch.randn(c, generator=gen, device="cuda")).to(dtype)
+        scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(c, generator=gen, device="cuda")
+        if fused_launches is None:     # the kernels' launches per call
+            before = (bn.batch_moments.launches, bn.apply_bn_act.launches)
+            bn.fused_bn_act(x, scale, bias)
+            fused_launches = (bn.batch_moments.launches - before[0],
+                              bn.apply_bn_act.launches - before[1])
+        mean, var = bn.batch_moments(x)
+        torch.cuda.synchronize()
+        ref_mean, ref_var = bn.batch_moments_plain(x)
+        chunk = bn.moment_chunk_rows(rows, c, dtype, x.data_ptr() % 16 == 0,
+                                     sms)
+        ctl_mean, ctl_var = moments_without_last_chunk(x, chunk)
+        m_rel = max(rel_l2(mean, ref_mean), rel_l2(var, ref_var))
+        m_ctl = min(rel_l2(ctl_mean, ref_mean), rel_l2(ctl_var, ref_var))
+        check(f"K5 {name} mean, var", m_rel, m_ctl, KERNEL_BN_MOMENTS_REL_L2)
+        m_err = max((mean - ref_mean).abs().max().item(),
+                    (var - ref_var).abs().max().item())
+        tol = (KERNEL_BN_APPLY_REL_L2_FP32 if dtype == torch.float32
+               else KERNEL_BN_APPLY_REL_L2_16BIT)
+        a_rel, a_ctl, a_err = 0.0, math.inf, 0.0
+        for act in bn.ACTIVATIONS:
+            y = bn.apply_bn_act(x, ref_mean, ref_var, scale, bias,
+                                activation=act)
+            torch.cuda.synchronize()
+            ref = bn.apply_bn_act_plain(x, ref_mean, ref_var, scale, bias,
+                                        activation=act)
+            rel = rel_l2(y, ref)
+            ctl = rel_l2(unnormalized_last_channels(x, ref), ref)
+            check(f"K6 {name} {act}", rel, ctl, tol)
+            a_rel, a_ctl = max(a_rel, rel), min(a_ctl, ctl)
+            a_err = max(a_err, (y.float() - ref.float()).abs().max().item())
+
+        # timed on copies of x in turn, enough that each call reads its
+        # input from HBM, not from the L2 the call before filled
+        xs = itertools.cycle(rotation(x, l2_bytes))
+        stats = (ref_mean, ref_var, scale, bias)
+        times = {
+            "K5": (cuda_ms(lambda: bn.batch_moments(next(xs)), iters),
+                   cuda_ms(lambda: bn.batch_moments_plain(next(xs)), iters),
+                   cuda_ms(lambda: torch.var_mean(next(xs).reshape(-1, c),
+                                                  dim=0, correction=0),
+                           iters)),
+            "K6": (cuda_ms(lambda: bn.apply_bn_act(next(xs), *stats), iters),
+                   cuda_ms(lambda: bn.apply_bn_act_plain(next(xs), *stats),
+                           iters),
+                   # on the channels-last (NCHW) view
+                   cuda_ms(lambda: F.leaky_relu(F.batch_norm(
+                       next(xs).permute(0, 3, 1, 2), *stats, False, 0.0,
+                       1e-5), 0.01), iters)),
+        }
+        readings = {"K5": (m_rel, m_ctl, m_err, KERNEL_BN_MOMENTS_REL_L2,
+                           "moments"),
+                    "K6": (a_rel, a_ctl, a_err, tol, "apply")}
+        for kname, (ms, plain_ms, lib_ms) in times.items():
+            rel, ctl, err, limit, kind = readings[kname]
+            bound, by = bn_bound(rows, c, x.element_size(), kind)
+            row = dict(case=name, shape=list(shape),
+                       dtype=str(dtype).replace("torch.", ""), rel_l2=rel,
+                       control_rel_l2=ctl, tolerance=limit, max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=by)
+            rows_out[kname].append(row)
+            log(f"{kname} {name} {tuple(shape)} {row['dtype']}: rel_l2 "
+                f"{rel:.3g} (limit {limit:g}; control {ctl:.3g}), "
+                f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({by})")
+        del x, xs
+    return rows_out, fused_launches
+
+
+def bn_counters():
+    """K5's and K6's wrappers, whose .launches count their launches."""
+    from consistentid_torch.ops import fused_bn_act as bn
+    return [bn.batch_moments, bn.apply_bn_act]
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host clock per call of fn (which returns host arrays, so each call
+    ends synchronised), after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def perception_phase():
+    """The perception hooks at full width in fp32 (the JAX makers' default):
+    SCRFD-10g at 640, iresnet50 at 112 to 512-d, BiSeNet 19 classes at 512,
+    random weights from random_perception_state. On the face: detect,
+    align, embed, parse; each hook timed on the card (PyTorch's defaults:
+    cuDNN convolutions in TF32); then, with TF32 off, the same inputs and
+    weights on the card and on the CPU: the SCRFD head maps, the chosen
+    slot, the aligned crop, the embedding and the BiSeNet logits by
+    relative L2, and the label maps' agreement."""
+    import numpy as np
+    import torch
+    from consistentid_torch.models.arcface import make_face_embedder
+    from consistentid_torch.models.bisenet import make_face_parser
+    from consistentid_torch.models.detection import (detect_and_align,
+                                                     select_face)
+    from consistentid_torch.models.safety_checker import make_safety_checker
+    from consistentid_torch.models.scrfd import (SCRFD_VARIANTS,
+                                                 flatten_level_outputs,
+                                                 make_face_detector)
+    from consistentid_torch.testing import (PERCEPTION_CHAIN_REL_L2,
+                                            PERCEPTION_LABEL_AGREEMENT,
+                                            PERCEPTION_REL_L2,
+                                            random_perception_state, rel_l2,
+                                            tf32_off)
+    from consistentid_torch.utils.image import (detector_letterbox,
+                                                imagenet_preprocess)
+
+    states = random_perception_state(torch.Generator("cuda").manual_seed(10))
+    cfg = SCRFD_VARIANTS["scrfd_10g"]
+
+    def hooks(device, st):
+        det = make_face_detector(st["detector"], cfg, input_size=640,
+                                 device=device)
+        return (det, make_face_embedder(st["embedder"], detector=det,
+                                        device=device),
+                make_face_parser(st["parser"], size=512, device=device))
+
+    face = face_inputs()[0]
+    detector, embedder, parser = hooks("cuda", states)
+    times = {"detect_ms": host_ms(lambda: detector(face), 5),
+             "embed_ms": host_ms(lambda: embedder(face), 5),
+             "parse_ms": host_ms(lambda: parser(face), 5)}
+    # the hooks' split: the networks alone on the card (CUDA events), the
+    # host preparations and the detector's post-processing (host clock)
+    x_det = torch.from_numpy(detector_letterbox(face, 640)[0]).cuda()
+    x_emb = torch.zeros((1, 112, 112, 3), device="cuda")
+    x_par = torch.from_numpy(imagenet_preprocess(face, 512)).cuda()
+    with torch.no_grad():
+        levels = flatten_level_outputs(detector.model(x_det))
+        times.update(
+            scrfd_forward_ms=cuda_ms(lambda: detector.model(x_det), 10,
+                                     queued=False),
+            iresnet50_forward_ms=cuda_ms(lambda: embedder.model(x_emb), 10,
+                                         queued=False),
+            bisenet_forward_ms=cuda_ms(lambda: parser.model(x_par), 10,
+                                       queued=False),
+            letterbox_ms=host_ms(lambda: detector_letterbox(face, 640), 5),
+            imagenet_preprocess_ms=host_ms(
+                lambda: imagenet_preprocess(face, 512), 5),
+            detect_and_align_ms=host_ms(lambda: detect_and_align(
+                levels, x_det[0], (640, 640))[0].cpu(), 5))
+    labels = parser(face)
+    emb = embedder(face)
+    if labels.shape != (512, 512) or labels.dtype != np.uint8 or \
+            labels.max() >= 19:
+        raise AssertionError(f"label map {labels.shape} {labels.dtype} max "
+                             f"{labels.max()}")
+    norm = float(np.linalg.norm(emb))
+    if emb.shape != (1, 512) or not abs(norm - 1.0) <= 1e-4:
+        raise AssertionError(f"embedding {emb.shape}, norm {norm}")
+    log(f"perception (fp32, TF32 convolutions): detect "
+        f"{times['detect_ms']:.2f}"
+        f" ms, embed (detect + align + iresnet50) {times['embed_ms']:.2f} ms,"
+        f" parse {times['parse_ms']:.2f} ms (networks alone: SCRFD "
+        f"{times['scrfd_forward_ms']:.2f}, iresnet50 "
+        f"{times['iresnet50_forward_ms']:.2f}, BiSeNet "
+        f"{times['bisenet_forward_ms']:.2f} ms; on the host: letterbox "
+        f"{times['letterbox_ms']:.2f}, ImageNet preprocess "
+        f"{times['imagenet_preprocess_ms']:.2f}, decode + NMS + align "
+        f"{times['detect_and_align_ms']:.2f} ms); {len(np.unique(labels))} "
+        f"classes in the label map, embedding norm {norm:.6f}")
+
+    x, _ = detector_letterbox(face, 640)
+    pix = imagenet_preprocess(face, 512)
+    cpu_states = {k: {n: t.cpu() for n, t in v.items()}
+                  for k, v in states.items()}
+    outs = []
+    with tf32_off(), torch.no_grad():
+        for device, st in (("cuda", states), ("cpu", cpu_states)):
+            det, emb_hook, par = hooks(device, st)
+            xt = torch.from_numpy(x).to(device)
+            raw = det.model(xt)
+            best = int(select_face(flatten_level_outputs(raw),
+                                   (640, 640))[0])
+            aligned, score, box = det(face)
+            logits = par.model.forward_nchw(
+                torch.from_numpy(pix).to(device).permute(0, 3, 1, 2))[0]
+            outs.append(dict(
+                raw={f"{s}/{k}": v.cpu() for s, lv in raw.items()
+                     for k, v in lv.items()},
+                best=best, aligned=torch.from_numpy(aligned),
+                embedding=torch.from_numpy(emb_hook(face)),
+                iresnet=emb_hook.model, logits=logits.cpu(),
+                labels=logits.argmax(1).cpu()))
+        # iresnet50 alone, on the same crop (the CPU's) on both devices
+        crop = (outs[1]["aligned"] / 127.5 - 1.0)[None]
+        for out in outs:
+            dev = next(out["iresnet"].parameters()).device
+            out["iresnet"] = out["iresnet"](crop.to(dev)).cpu()
+    card, cpu = outs
+    # each network on the same input: the SCRFD head maps, BiSeNet's
+    # logits, iresnet50's embedding
+    nets = {"scrfd_" + k: rel_l2(card["raw"][k], cpu["raw"][k])
+            for k in card["raw"]}
+    nets.update(iresnet50=rel_l2(card["iresnet"], cpu["iresnet"]),
+                bisenet_logits=rel_l2(card["logits"], cpu["logits"]))
+    # downstream of the keypoints, which move with the head maps
+    chain = dict(aligned=rel_l2(card["aligned"], cpu["aligned"]),
+                 embedding=rel_l2(card["embedding"], cpu["embedding"]))
+    agreement = (card["labels"] == cpu["labels"]).float().mean().item()
+    worst = max(nets, key=nets.get)
+    log(f"perception card vs CPU (fp32, TF32 off): networks on the same "
+        f"input, worst relative L2 {nets[worst]:.3g} ({worst}; limit "
+        f"{PERCEPTION_REL_L2:g}), iresnet50 {nets['iresnet50']:.3g}, BiSeNet "
+        f"logits {nets['bisenet_logits']:.3g}; from the keypoints on "
+        f"(limit {PERCEPTION_CHAIN_REL_L2:g}): aligned crop "
+        f"{chain['aligned']:.3g}, embedder hook {chain['embedding']:.3g}; "
+        f"label agreement {agreement:.6f} (limit "
+        f"{PERCEPTION_LABEL_AGREEMENT}); chosen slot card {card['best']} / "
+        f"CPU {cpu['best']}")
+    if not (nets[worst] <= PERCEPTION_REL_L2
+            and max(chain.values()) <= PERCEPTION_CHAIN_REL_L2
+            and agreement >= PERCEPTION_LABEL_AGREEMENT
+            and card["best"] == cpu["best"]):
+        raise AssertionError("perception card-vs-CPU check failed")
+    readings = {**nets, **chain}
+    checker = make_safety_checker(states["safety_checker"])
+    return (parser, embedder, checker), dict(
+        **times, card_vs_cpu_rel_l2=readings, label_agreement=agreement,
+        chosen_slot=card["best"], classes=int(len(np.unique(labels))))
+
+
+def photo_generate(bundle, parser, embedder, checker):
+    """The headline request from the photo alone: the serving bundle with
+    the face parser, the face embedder and the full-width random safety
+    checker (ViT-L/14, 24 layers); no injected labels or embedding."""
+    import numpy as np
+    import torch
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.testing import synthetic_clip_tokenizer
+
+    pipe = ConsistentIDPipeline(
+        bundle, synthetic_clip_tokenizer(),
+        pipeline_config=PipelineConfig(height=512, width=512,
+                                       num_inference_steps=50,
+                                       start_merge_step=30),
+        face_parser=parser, face_embedder=embedder, safety_checker=checker)
+    face = face_inputs()[0]
+    sample = np.random.RandomState(3).randint(0, 255, (4, 512, 512, 3),
+                                              np.uint8)
+    checker_ms = host_ms(lambda: checker(sample), 5)
+    counters = launch_counters() + bn_counters()
+    for w in counters:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.generate(PROMPT, face, seed=2, num_images_per_prompt=4)
+    seconds = time.perf_counter() - t0
+    launches = [w.launches for w in counters]
+    flags = pipe.last_nsfw_flags
+    if out.shape != (4, 512, 512, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"output {out.shape} {out.dtype}")
+    if flags is None or np.asarray(flags).shape != (4,):
+        raise AssertionError(f"nsfw flags {flags}")
+    if launches != [500, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"launches K1-K6 {launches}, expected K1 500 "
+                             "and no other")
+    stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+    log(f"generate from the photo (batch 4, 50 DDIM steps, 512 px, parser,"
+        f" embedder and safety checker): {seconds:.3f} s, "
+        f"{4 / seconds * 60:.2f} images/min, stages ms {stages}; safety "
+        f"checker alone (4 images) {checker_ms:.2f} ms; flags "
+        f"{np.asarray(flags).tolist()}; launches K1-K6 {launches}; output "
+        f"mean {float(out.mean()):.2f}")
+    return dict(seconds=seconds, images_per_min=4 / seconds * 60,
+                stage_ms=stages, checker_ms=checker_ms, launches=launches,
+                nsfw_flags=np.asarray(flags).tolist())
 
 
 def main() -> int:
@@ -997,9 +1387,13 @@ def main() -> int:
 
     k1_rows = kernel_phase()
     train_rows = train_kernel_phase()
+    bn_rows, bn_launches = bn_kernel_phase()
     bundle, main = main_path()
     path = unet_path_check(bundle)
     profile = profile_unet(bundle)
+    hooks, perception = perception_phase()
+    photo = photo_generate(bundle, *hooks)
+    del hooks
     state, train = training_path(bundle)
     train_profile = profile_train_step(bundle, state)
     train_path = train_unet_path_check(bundle, state)
@@ -1021,7 +1415,7 @@ def main() -> int:
     fwd_src = "consistentid_torch/csrc/flash_attention.cu"
     bwd_src = "consistentid_torch/csrc/flash_attention_bwd.cu"
     jax_src = "consistentid_tpu/ops/flash_attention.py"
-    k2, k3, k4 = train["launches"][1:]
+    k2, k3, k4 = train["launches"][1:4]
     kernels = [
         entry("flash_attention_fwd (K1)", fwd_src, f"{jax_src}:63",
               main["launches"], k1_rows, "sdpa forward"),
@@ -1032,7 +1426,26 @@ def main() -> int:
         entry("flash_attention_bwd_dkv (K4)", bwd_src, f"{jax_src}:308", k4,
               train_rows["K4"], "sdpa backward alone (dq, dk, dv: K3 + K4)"),
     ]
+    bn_src = "consistentid_torch/csrc/fused_bn_act.cu"
+    bn_jax = "consistentid_tpu/ops/fused_bn_act.py"
+    note = ("launches: per call of fused_bn_act in the kernel phase; "
+            "main_path_launches: counted over the serving request, the "
+            "request from the photo and the 5 timed train steps (no model "
+            "calls K5 or K6, as in the JAX package)")
+    for i, ((label, line, rows, lib), n) in enumerate(zip(
+            (("batch_moments (K5)", 35, bn_rows["K5"],
+              "torch.var_mean over (rows, C), correction 0"),
+             ("apply_bn_act (K6)", 58, bn_rows["K6"],
+              "F.batch_norm (inference) on the channels-last view, then "
+              "F.leaky_relu: two calls")), bn_launches)):
+        on_paths = {"generate": main["bn_launches"][i],
+                    "generate_from_photo": photo["launches"][4 + i],
+                    "train_steps": train["launches"][4 + i]}
+        kernels.append({**entry(label, bn_src, f"{bn_jax}:{line}", n, rows,
+                                lib),
+                        "main_path_launches": on_paths, "note": note})
     log(json.dumps({"main_path": main, "unet_path_check": path,
+                    "perception": perception, "photo_generate": photo,
                     "tiny_card_vs_cpu": tiny, "unet_profile": profile,
                     "training_path": train, "train_profile": train_profile,
                     "training_unet_path_check": train_path,

@@ -1,1 +1,1 @@
-from .from_jax import params_from_jax
+from .from_jax import params_from_jax, state_from_jax

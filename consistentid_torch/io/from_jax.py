@@ -7,12 +7,17 @@ change:
   - Dense kernel (in, out)      -> Linear weight (out, in)
   - Conv kernel HWIO            -> Conv2d weight OIHW
   - norm scale, Embed embedding -> weight
-  - everything else (bias, position/class embeddings, latents) as it is.
-It needs numpy only: the caller converts device arrays first.
+  - PReLU alpha                 -> weight
+  - everything else (bias, position/class embeddings, latents, the SCRFD
+    head's scalar `scale_i`) as it is.
+`state_from_jax` takes flax variables {"params": ..., "batch_stats": ...}
+and adds the BatchNorm running statistics (mean -> running_mean, var ->
+running_var, and a zero num_batches_tracked). Both need numpy only: the
+caller converts device arrays first.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,9 +44,47 @@ def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"{prefix}{key}: kernel of rank {a.ndim}")
             name = "weight"
-        elif key in ("scale", "embedding"):
+        elif key in ("scale", "embedding", "alpha"):
             name = "weight"
         else:
             name = key
         out[f"{prefix}{name}"] = _to_tensor(a)
     return out
+
+
+def _batch_stats(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in tree.items():
+        if key in ("mean", "var") and not isinstance(val, Mapping):
+            name = "running_mean" if key == "mean" else "running_var"
+            out[f"{prefix}{name}"] = _to_tensor(np.asarray(val))
+            out[f"{prefix}num_batches_tracked"] = torch.zeros((),
+                                                              dtype=torch.long)
+        else:
+            out.update(_batch_stats(val, f"{prefix}{key}."))
+    return out
+
+
+def permute_nhwc_flatten(weight: torch.Tensor, channels: int) -> torch.Tensor:
+    """A Linear weight (out, H*W*C) over an NHWC map flattened as (h, w, c)
+    -> the same weight over the NCHW map flattened as (c, h, w)."""
+    out_dim, n = weight.shape
+    spatial = int(round((n // channels) ** 0.5))
+    return (weight.reshape(out_dim, spatial, spatial, channels)
+            .permute(0, 3, 1, 2).reshape(out_dim, n).contiguous())
+
+
+def state_from_jax(variables: Mapping,
+                   flatten_nhwc: Optional[Mapping[str, int]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Flax variables {"params": ..., "batch_stats": ...} -> the port's state
+    dict, parameters and BatchNorm buffers. `flatten_nhwc` names the Linear
+    layers that read a flattened feature map, by the map's channels (ArcFace:
+    {"fc": 512}): the JAX package flattens NHWC, the port NCHW, so their
+    weight columns are permuted (h, w, c) -> (c, h, w)."""
+    state = params_from_jax(variables["params"])
+    state.update(_batch_stats(variables.get("batch_stats", {})))
+    for name, channels in (flatten_nhwc or {}).items():
+        key = f"{name}.weight"
+        state[key] = permute_nhwc_flatten(state[key], channels)
+    return state

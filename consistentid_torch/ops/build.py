@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES: Dict[str, Sequence[str]] = {
     "flash_attention": ("flash_attention.cu",),        # K1, K2
     "flash_attention_bwd": ("flash_attention_bwd.cu",),  # K3, K4
+    "fused_bn_act": ("fused_bn_act.cu",),                # K5, K6
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

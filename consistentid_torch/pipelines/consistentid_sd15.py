@@ -7,15 +7,19 @@ Counterpart of the JAX package's pipelines/consistentid_sd15.py:
     -> LoRA fold -> DDIM CFG denoise with the merge-step switch
     -> VAE decode -> uint8.
 
-Face parsing labels and the ArcFace embedding are injected inputs (as the
-JAX pipeline allows); a missing face embedding falls back to zeros like the
-reference. Parameters live in the bundle's modules.
+Face parsing labels and the ArcFace embedding are either injected or made
+from the photo by the `face_parser` and `face_embedder` hooks
+(models/bisenet.py, models/arcface.py with models/scrfd.py), as in the JAX
+pipeline; with neither an embedding nor an embedder the embedding is zeros,
+like the reference's no-face fallback. A `safety_checker` hook
+(models/safety_checker.py) runs on the uint8 images. Parameters live in the
+bundle's modules.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -183,7 +187,13 @@ class ConsistentIDPipeline:
 
     def __init__(self, bundle: SD15Bundle, tokenizer,
                  pipeline_config: Optional[PipelineConfig] = None,
-                 scheduler_config: Optional[SchedulerConfig] = None):
+                 scheduler_config: Optional[SchedulerConfig] = None,
+                 face_parser: Optional[Callable] = None,
+                 face_embedder: Optional[Callable] = None,
+                 safety_checker: Optional[Callable] = None):
+        """face_parser: (H, W, 3) uint8 -> (H, W) label map; face_embedder:
+        (H, W, 3) uint8 -> (1, D) embedding; safety_checker: uint8
+        (B, H, W, 3) -> (images, (B,) bool flags)."""
         self.bundle = bundle
         self.tokenizer = tokenizer
         # register the trigger tokens (reference :148-150); idempotent
@@ -192,7 +202,13 @@ class ConsistentIDPipeline:
         self.schedule = NoiseSchedule.create(
             scheduler_config or SchedulerConfig())
         self._facial_token_id = tokenizer.convert_tokens_to_ids("<|facial|>")
-        # per-stage times of the last _generate_core call, in ms
+        self.face_parser = face_parser
+        self.face_embedder = face_embedder
+        self.safety_checker = safety_checker
+        self.last_nsfw_flags = None  # set per call when a checker is active
+        # per-stage times of the last generate call, in ms: prepare (host
+        # work and the perception hooks), encode, denoise, decode (those
+        # three of _generate_core) and safety
         self.last_stage_ms: Dict[str, float] = {}
 
     # ---------------- host-side prepare ----------------
@@ -216,13 +232,20 @@ class ConsistentIDPipeline:
     ) -> Dict[str, np.ndarray]:
         """Strings, masks and pixels -> fixed-shape numpy arrays.
         face_image: (H, W, 3) uint8; parsing_labels: (H, W) label map of
-        the same size (face parsing is not ported yet, so it is required)."""
+        the same size, else made by the face parser; faceid_embeds: else
+        made by the face embedder, else zeros."""
         if parsing_labels is None:
-            raise ValueError("pass parsing_labels: the face parser is not "
-                             "part of the port yet")
-        if faceid_embeds is None:  # no detector: zero fallback (ref :220-221)
-            faceid_embeds = np.zeros(
-                (1, self.bundle.adapter_config.id_embeddings_dim), np.float32)
+            if self.face_parser is None:
+                raise ValueError("pass parsing_labels or configure "
+                                 "face_parser")
+            parsing_labels = self.face_parser(face_image)
+        if faceid_embeds is None:
+            if self.face_embedder is not None:
+                faceid_embeds = self.face_embedder(face_image)
+            else:  # no detector: zero fallback (reference :220-221)
+                faceid_embeds = np.zeros(
+                    (1, self.bundle.adapter_config.id_embeddings_dim),
+                    np.float32)
         face_caption = face_caption or FACE_CAPTION_TEMPLATE
 
         region_masks = select_key_regions(
@@ -377,14 +400,18 @@ class ConsistentIDPipeline:
         num_images_per_prompt: int = 1,
         return_float: bool = False,
     ):
-        """uint8 (N, H, W, 3) numpy images; with return_float the decoded
-        [-1, 1] images as a tensor on the device instead."""
+        """uint8 (N, H, W, 3) numpy images, through the safety checker when
+        one is configured (flags in `last_nsfw_flags`); with return_float
+        the decoded [-1, 1] images as a tensor on the device instead, before
+        any checker."""
         cfg = self.config
         height = height or cfg.height
         width = width or cfg.width
+        t0 = time.perf_counter()
         cond = self.device_cond(self.prepare_conditioning(
             prompt, face_image, parsing_labels=parsing_labels,
             faceid_embeds=faceid_embeds, negative_prompt=negative_prompt))
+        prepare_ms = (time.perf_counter() - t0) * 1e3
         sf = self.bundle.vae_scale_factor
         device = self.bundle.device
         gen = torch.Generator(device).manual_seed(seed)
@@ -400,9 +427,15 @@ class ConsistentIDPipeline:
             else cfg.start_merge_step,
             num_inference_steps or cfg.num_inference_steps,
             scheduler or cfg.scheduler, ip_scale, lora_scale)
+        self.last_stage_ms = {"prepare": prepare_ms, **self.last_stage_ms}
         if return_float:
             return images
-        return postprocess_to_uint8(images)
+        out = postprocess_to_uint8(images)
+        if self.safety_checker is not None:
+            t0 = time.perf_counter()
+            out, self.last_nsfw_flags = self.safety_checker(out)
+            self.last_stage_ms["safety"] = (time.perf_counter() - t0) * 1e3
+        return out
 
 
 class _StageClock:

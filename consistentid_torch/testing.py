@@ -1,12 +1,15 @@
-"""Tiny random-weight bundles and a synthetic tokenizer for tests and smoke
-runs, and the limits the card checks hold the flash kernels to.
-`tiny_bundle` has the sizes of the JAX package's tiny SD1.5 bundle, so the
-same parameters load into both."""
+"""Tiny random-weight bundles, random perception weights and a synthetic
+tokenizer for tests and smoke runs, and the limits the card checks hold the
+kernels and the perception models to. `tiny_bundle` has the sizes of the JAX
+package's tiny SD1.5 bundle, so the same parameters load into both."""
 from __future__ import annotations
 
-from typing import Union
+import math
+from contextlib import contextmanager
+from typing import Dict, Union
 
 import torch
+from torch import nn
 
 from .core import (AdapterConfig, CLIPTextConfig, CLIPVisionConfig,
                    UNetConfig, VAEConfig)
@@ -27,6 +30,34 @@ KERNEL_REL_L2_FP32 = 1e-5
 # dtype): only fp32 summation order, flipping a rounding here and there
 # (up to 3.3e-4 read; the dropped-tile controls 0.057 and more).
 KERNEL_REL_L2_SAME_PRECISION = 1e-3
+# K5 (batch_moments) against its plain version, relative L2 of mean and of
+# var: both sum in fp32, in another order (chunks of rows and a fixed tree
+# against torch's reduction); inputs with channel offsets keep mean and var
+# of order 1, so the error is a few fp32 ulps of E[x^2]. The control, the
+# plain moments with the last chunk of rows never summed, reads at least
+# the chunk's share of the rows (1/523 at BiSeNet's stem).
+KERNEL_BN_MOMENTS_REL_L2 = 1e-5
+# K6 (apply_bn_act) against its plain version: the kernel rounds each of
+# JAX's operations on its own, in the same order as the plain version's
+# separate torch ops, on the same inv, so fp32 differs only where silu's
+# exp does (a few ulps); 16-bit outputs round the same fp32 values, except
+# where such an ulp moves one across a rounding boundary (one bf16 ulp,
+# 2^-8, on rare elements). The control, the last 8 channels left
+# unnormalized, reads 0.1 and more.
+KERNEL_BN_APPLY_REL_L2_FP32 = 1e-6
+KERNEL_BN_APPLY_REL_L2_16BIT = 1e-4
+BN_CONTROL_CHANNELS = 8
+# The perception models in fp32 on the card (TF32 off) against the CPU, as
+# relative L2 over each output (chip_smoke.py's perception check, PERF.md):
+# each network on the same input, summation order only over up to 50
+# layers (first reading on an H100: at most 8.2e-7 for BiSeNet's logits);
+PERCEPTION_REL_L2 = 1e-4
+# the detector's aligned crop and the embedder hook's output, downstream of
+# the keypoints, which move with the head maps' summation order (first
+# reading 5.1e-5 and 1.4e-4);
+PERCEPTION_CHAIN_REL_L2 = 1e-3
+# and the share of BiSeNet label pixels that agree (first reading 0.999996).
+PERCEPTION_LABEL_AGREEMENT = 0.999
 
 
 def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -35,11 +66,130 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got.float() - ref).norm() / ref.norm()).item()
 
 
+@contextmanager
+def tf32_off():
+    """fp32 matmuls and cuDNN convolutions in full fp32 inside the block
+    (cuDNN defaults to TF32), for the card-against-CPU checks."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def drop_last_tile(n: int, tile: int = 64) -> int:
     """How many of n rows a kernel keeps that skips its last `tile`-row
     tile, or the ragged tail past the last whole tile: the control the card
     checks must tell apart from the kernel."""
     return (n - 1) // tile * tile
+
+
+def moments_without_last_chunk(x: torch.Tensor, chunk_rows: int):
+    """The control of K5's card check: the plain moments of an NHWC tensor
+    with its last chunk of `chunk_rows` rows never summed (still divided by
+    all the rows), as a kernel that lost a pass-1 CTA would give them."""
+    c = x.shape[-1]
+    rows = x.numel() // c
+    xf = x.reshape(rows, c)[:(rows - 1) // chunk_rows * chunk_rows].float()
+    mean = xf.sum(0) / rows
+    return mean, (xf * xf).sum(0) / rows - mean * mean
+
+
+def unnormalized_last_channels(x: torch.Tensor, y: torch.Tensor,
+                               n: int = BN_CONTROL_CHANNELS) -> torch.Tensor:
+    """The control of K6's card check: the plain output y with its last n
+    channels left as x, as a kernel that skipped a channel tile would."""
+    out = y.clone()
+    out[..., -n:] = x[..., -n:]
+    return out
+
+
+@torch.no_grad()
+def randomize_perception_module(module: nn.Module,
+                                generator: torch.Generator) -> None:
+    """Seeded random weights for a perception model, in place, such that a
+    random stack of 50 layers stays finite and non-degenerate: He-scaled
+    conv weights (std sqrt(2 / fan_in)), linear weights of std
+    1 / sqrt(fan_in), BatchNorm scale 1 + N(0, 0.1^2), bias and running mean
+    N(0, 0.1^2), running variance U(0.5, 1.5); unit LayerNorm and GroupNorm
+    scales, PReLU slopes 0.25, SCRFD's box scales 1; the safety checker's
+    concept banks N(0, 1) and their thresholds U(0.15, 0.25); biases and
+    embeddings N(0, 0.02^2). In a residual block (a module with `has_downsample`) the
+    last BatchNorm of the residual branch gets scale N(0, 0.1^2), the
+    small-scale residual start of ResNet training: else each of SCRFD-10g's
+    14 blocks doubles the activations, the head's scores saturate and the
+    keypoints leave the image."""
+    dev = generator.device
+    closing = set()
+    for mod in module.modules():
+        if hasattr(mod, "has_downsample"):
+            norms = [m for n, m in mod.named_children()
+                     if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d))
+                     and not n.startswith("downsample")]
+            closing.add(id(norms[-1]))
+
+    def normal(t, std, mean=0.0):
+        t.copy_(torch.randn(t.shape, generator=generator, device=dev) * std
+                + mean)
+
+    for mod in module.modules():
+        for leaf, t in [*mod.named_parameters(recurse=False),
+                        *mod.named_buffers(recurse=False)]:
+            if isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
+                if leaf == "weight":
+                    normal(t, 0.1, 0.0 if id(mod) in closing else 1.0)
+                elif leaf in ("bias", "running_mean"):
+                    normal(t, 0.1)
+                elif leaf == "running_var":
+                    t.copy_(torch.rand(t.shape, generator=generator,
+                                       device=dev) + 0.5)
+                else:
+                    t.zero_()                     # num_batches_tracked
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                t.fill_(1.0 if leaf == "weight" else 0.0)
+            elif type(mod).__name__ == "PReLU":
+                t.fill_(0.25)
+            elif leaf.startswith("scale_"):
+                t.fill_(1.0)
+            elif leaf == "weight" and t.dim() >= 2:
+                fan_in = t[0].numel()
+                normal(t, math.sqrt(2.0 / fan_in) if t.dim() == 4
+                       else 1.0 / math.sqrt(fan_in))
+            elif leaf.endswith("_embeds"):
+                normal(t, 1.0)
+            elif leaf.endswith("_embeds_weights"):   # checker thresholds
+                t.copy_(torch.rand(t.shape, generator=generator,
+                                   device=dev) * 0.1 + 0.15)
+            else:
+                normal(t, 0.02)
+
+
+def random_perception_state(generator: torch.Generator
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Seeded random state dicts, on the generator's device, for the
+    perception models at full width: SCRFD-10g ("detector"), iresnet50 at
+    112 px to 512-d ("embedder"), BiSeNet with 19 classes ("parser") and the
+    ViT-L/14 safety checker ("safety_checker")."""
+    from .models.arcface import IResNet
+    from .models.bisenet import BiSeNet
+    from .models.safety_checker import SafetyChecker
+    from .models.scrfd import SCRFD, SCRFD_VARIANTS
+
+    builders = {"detector": lambda: SCRFD(SCRFD_VARIANTS["scrfd_10g"]),
+                "embedder": IResNet, "parser": BiSeNet,
+                "safety_checker": SafetyChecker}
+    states = {}
+    for name, build in builders.items():
+        with torch.device("meta"):
+            model = build()
+        model.to_empty(device=generator.device)
+        randomize_perception_module(model, generator)
+        states[name] = model.state_dict()
+    return states
 
 
 def tiny_bundle(device: Union[str, torch.device] = "cuda",

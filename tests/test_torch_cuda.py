@@ -1,8 +1,10 @@
-"""K1-K4 on the card: each CUDA kernel against its plain PyTorch version,
-for each dtype and head-dim instantiation, ragged sequence tails included;
-the autograd Function's gradients through the kernels against those through
-the plain versions; what the wrappers refuse. Needs an NVIDIA GPU and nvcc;
-skips elsewhere. Imports no JAX, so it runs on a machine without it:
+"""K1-K6 on the card: each CUDA kernel against its plain PyTorch version,
+for each dtype and head-dim (K1-K4) or channel-layout (K5, K6)
+instantiation, ragged tails included; the autograd Function's gradients
+through the kernels against those through the plain versions; what the
+wrappers refuse; two perception networks on the card against the CPU. Needs
+an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it runs on a
+machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
@@ -10,10 +12,17 @@ import pytest
 import torch
 
 from consistentid_torch.ops import flash_attention as port_flash
-from consistentid_torch.testing import (KERNEL_REL_L2_16BIT,
+from consistentid_torch.ops import fused_bn_act as port_bn
+from consistentid_torch.testing import (KERNEL_BN_APPLY_REL_L2_16BIT,
+                                        KERNEL_BN_APPLY_REL_L2_FP32,
+                                        KERNEL_BN_MOMENTS_REL_L2,
+                                        KERNEL_REL_L2_16BIT,
                                         KERNEL_REL_L2_FP32,
                                         KERNEL_REL_L2_SAME_PRECISION,
-                                        drop_last_tile, rel_l2)
+                                        PERCEPTION_REL_L2, drop_last_tile,
+                                        moments_without_last_chunk,
+                                        randomize_perception_module, rel_l2,
+                                        tf32_off, unnormalized_last_channels)
 
 
 @pytest.fixture
@@ -213,3 +222,137 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(cuda_generator):
                                           lse, lse)
     with pytest.raises(TypeError):           # lse must be fp32
         port_flash.flash_attention_bwd_dkv(q, k, v, do, lse.half(), lse)
+
+
+# K5/K6 shapes: BiSeNet's stem (training at batch 16, 448 px crops; the
+# parser at 512 px), ragged rows with C = 24 and 19, a C of more than 32
+# vectors (several channel tiles)
+BN_CASES = [
+    ((16, 224, 224, 64), torch.float32),
+    ((1, 256, 256, 64), torch.float32),
+    ((1, 256, 256, 64), torch.bfloat16),
+    ((1, 256, 256, 64), torch.float16),
+    ((2, 9, 7, 24), torch.float32),
+    ((2, 9, 7, 24), torch.bfloat16),
+    ((1, 33, 17, 19), torch.float32),
+    ((1, 33, 17, 19), torch.bfloat16),
+    ((1, 33, 17, 19), torch.float16),
+    ((2, 16, 16, 1000), torch.bfloat16),
+]
+
+
+def _bn_inputs(g, shape, dtype, misaligned=False):
+    """randn plus per-channel offsets (mean and var of order 1); with
+    `misaligned`, a contiguous tensor 4 bytes past a 16-byte boundary, which
+    the wrappers run one channel per load."""
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device="cuda") + torch.randn(
+        c, generator=g, device="cuda")
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        x = buf[1:].view(shape).copy_(x)
+    scale = torch.rand(c, generator=g, device="cuda") + 0.5
+    bias = torch.randn(c, generator=g, device="cuda")
+    return x.to(dtype), scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", BN_CASES)
+def test_bn_moments_kernel_matches_plain(cuda_generator, shape, dtype):
+    x, _, _ = _bn_inputs(cuda_generator, shape, dtype)
+    before = port_bn.batch_moments.launches
+    mean, var = port_bn.batch_moments(x)
+    torch.cuda.synchronize()
+    assert port_bn.batch_moments.launches == before + 1
+    assert mean.dtype == var.dtype == torch.float32
+    ref_mean, ref_var = port_bn.batch_moments_plain(x)
+    rows = x.numel() // shape[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = port_bn.moment_chunk_rows(rows, shape[-1], dtype, True, sms)
+    ctl_mean, ctl_var = moments_without_last_chunk(x, chunk)
+    for got, ref, ctl in ((mean, ref_mean, ctl_mean), (var, ref_var, ctl_var)):
+        assert torch.isfinite(got).all()
+        assert rel_l2(got, ref) <= KERNEL_BN_MOMENTS_REL_L2
+        assert rel_l2(ctl, ref) > KERNEL_BN_MOMENTS_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", BN_CASES)
+@pytest.mark.parametrize("activation", port_bn.ACTIVATIONS)
+def test_bn_apply_kernel_matches_plain(cuda_generator, shape, dtype,
+                                       activation):
+    x, scale, bias = _bn_inputs(cuda_generator, shape, dtype)
+    mean, var = port_bn.batch_moments_plain(x)
+    before = port_bn.apply_bn_act.launches
+    y = port_bn.apply_bn_act(x, mean, var, scale, bias,
+                             activation=activation)
+    torch.cuda.synchronize()
+    assert port_bn.apply_bn_act.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    ref = port_bn.apply_bn_act_plain(x, mean, var, scale, bias,
+                                     activation=activation)
+    limit = (KERNEL_BN_APPLY_REL_L2_FP32 if dtype == torch.float32
+             else KERNEL_BN_APPLY_REL_L2_16BIT)
+    assert rel_l2(y, ref) <= limit
+    assert rel_l2(unnormalized_last_channels(x, ref), ref) > limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernels_one_channel_per_load(cuda_generator, dtype):
+    """A tensor off a 16-byte boundary: both kernels read one channel per
+    load (the scalar path) and agree with the plain versions."""
+    x, scale, bias = _bn_inputs(cuda_generator, (2, 30, 30, 64), dtype,
+                                misaligned=True)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    y, mean, var = port_bn.fused_bn_act(x, scale, bias, activation="silu")
+    ref_mean, ref_var = port_bn.batch_moments_plain(x)
+    assert rel_l2(mean, ref_mean) <= KERNEL_BN_MOMENTS_REL_L2
+    assert rel_l2(var, ref_var) <= KERNEL_BN_MOMENTS_REL_L2
+    ref = port_bn.apply_bn_act_plain(x, mean, var, scale, bias,
+                                     activation="silu")
+    limit = (KERNEL_BN_APPLY_REL_L2_FP32 if dtype == torch.float32
+             else KERNEL_BN_APPLY_REL_L2_16BIT)
+    assert rel_l2(y, ref) <= limit
+
+
+@pytest.mark.cuda
+def test_bn_wrappers_reject_what_kernels_do_not_take(cuda_generator):
+    x, scale, bias = _bn_inputs(cuda_generator, (2, 8, 8, 16), torch.float32)
+    mean, var = port_bn.batch_moments(x)
+    with pytest.raises(ValueError):          # non-contiguous
+        port_bn.batch_moments(x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        port_bn.apply_bn_act(x.transpose(1, 2), mean, var, scale, bias)
+    with pytest.raises(ValueError):          # statistics on another device
+        port_bn.apply_bn_act(x, mean.cpu(), var, scale, bias)
+    with pytest.raises(ValueError):          # C mismatch of the statistics
+        port_bn.apply_bn_act(x, mean[:8], var[:8], scale[:8], bias[:8])
+    with pytest.raises(ValueError):          # unknown activation
+        port_bn.apply_bn_act(x, mean, var, scale, bias, activation="gelu")
+    with pytest.raises(TypeError):           # float64 on the card
+        port_bn.batch_moments(x.double())
+    with pytest.raises(ValueError):          # not NHWC
+        port_bn.batch_moments(x[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["iresnet50", "bisenet"])
+def test_perception_forward_card_vs_cpu(cuda_generator, name):
+    """One forward at full width, fp32 with TF32 off, on the card and on the
+    CPU from the same random weights and input (PERCEPTION_REL_L2)."""
+    from consistentid_torch.models.arcface import IResNet
+    from consistentid_torch.models.bisenet import BiSeNet
+
+    model, size = ((IResNet(), 112) if name == "iresnet50"
+                   else (BiSeNet(), 256))
+    randomize_perception_module(model, torch.Generator().manual_seed(0))
+    model.eval()
+    x = torch.randn((2, size, size, 3), generator=torch.Generator()
+                    .manual_seed(1))
+    with tf32_off(), torch.no_grad():
+        want = model(x)
+        got = model.cuda()(x.cuda())
+    for g, w in zip(got if name == "bisenet" else [got],
+                    want if name == "bisenet" else [want]):
+        assert rel_l2(g.cpu(), w) <= PERCEPTION_REL_L2

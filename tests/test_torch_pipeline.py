@@ -200,3 +200,65 @@ def test_host_steps_match_jax():
     np.testing.assert_array_equal(
         port_image.postprocess_to_uint8(torch.from_numpy(images)),
         jax_image.postprocess_to_uint8(images))
+
+
+def test_prepare_conditioning_through_hooks(pipes, monkeypatch):
+    """No injected labels or embedding: the port's face_parser and
+    face_embedder hooks (BiSeNet, 19 classes at 64 px; a tiny 16-d IResNet
+    behind a stand-in detector that returns a crop of the photo) against the
+    JAX package's make_face_parser and make_face_embedder on the same
+    weights, each pipeline calling its own. The same prepared arrays reach
+    both networks, so the label maps agree exactly: ids, indices and masks
+    exact, the embedding within 1e-5 (fp32 towers), pixels within one grey
+    level (0.016). Without labels or a parser the port raises; a safety
+    checker's flags land in last_nsfw_flags."""
+    from consistentid_tpu.models import arcface as jax_arcface
+    from consistentid_tpu.models import bisenet as jax_bisenet
+    from consistentid_torch.io import state_from_jax
+    from consistentid_torch.models import arcface, bisenet
+    from tests.test_torch_perception import draw_variables
+
+    jpipe, _, ppipe, _ = pipes
+    face, _, _ = face_inputs()
+    bv = draw_variables(jax_bisenet.BiSeNet(), (1, 64, 64, 3), 5)
+    tiny = dict(layers=(1, 1, 1, 1), embedding_dim=16, input_size=32)
+    iv = draw_variables(jax_arcface.IResNet(**tiny), (1, 32, 32, 3), 6)
+
+    def detector(image):
+        return np.asarray(image)[16:48, 16:48].astype(np.float32), 0.9, \
+            np.zeros(4)
+
+    monkeypatch.setattr(jpipe, "face_parser", jax_bisenet.make_face_parser(
+        bv["params"], bv["batch_stats"], size=64))
+    monkeypatch.setattr(jpipe, "face_embedder", jax_arcface.make_face_embedder(
+        iv["params"], iv["batch_stats"], detector=detector))
+    hooked = ConsistentIDPipeline(
+        ppipe.bundle, synthetic_clip_tokenizer(), ppipe.config,
+        face_parser=bisenet.make_face_parser(state_from_jax(bv), size=64,
+                                             device="cpu"),
+        face_embedder=arcface.make_face_embedder(
+            state_from_jax(iv, flatten_nhwc={"fc": 512}), detector=detector,
+            device="cpu"),
+        safety_checker=lambda images: (np.zeros_like(images),
+                                       np.ones(len(images), bool)))
+    jcond = jpipe.prepare_conditioning(PROMPT, Image.fromarray(face))
+    pcond = hooked.prepare_conditioning(PROMPT, face)
+    assert pcond.keys() == jcond.keys()
+    for key in ("clean_ids", "text_only_ids", "negative_ids", "facial_idx",
+                "facial_idx_mask", "region_masks"):
+        np.testing.assert_array_equal(pcond[key], jcond[key], err_msg=key)
+    assert jcond["facial_idx_mask"].sum() >= 1
+    np.testing.assert_allclose(pcond["faceid_embeds"], jcond["faceid_embeds"],
+                               rtol=0, atol=1e-5)
+    assert np.linalg.norm(pcond["faceid_embeds"]) == pytest.approx(1, 1e-5)
+    for key in ("face_pixels", "region_pixels"):
+        np.testing.assert_allclose(pcond[key], jcond[key], rtol=0, atol=0.016,
+                                   err_msg=key)
+
+    with pytest.raises(ValueError):
+        ppipe.prepare_conditioning(PROMPT, face)
+    img = hooked.generate(PROMPT, face, num_inference_steps=2, seed=0)
+    assert img.shape == (1, 64, 64, 3) and (img == 0).all()
+    assert hooked.last_nsfw_flags.tolist() == [True]
+    assert {"prepare", "encode", "denoise", "decode", "safety"} <= set(
+        hooked.last_stage_ms)
