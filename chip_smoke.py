@@ -6,25 +6,32 @@
 Phases, each printing its result; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ (nvcc, sm_90a), one nvcc per source, all
-     started together;
+     started together; log each kernel's registers, shared memory and
+     spills from the ptxas report, and its wgmma and TMA instructions from
+     cuobjdump where the toolkit has it;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at ragged shapes, by the relative L2 error of
      each output (each limit with a control: the plain version with one key
      or query tile dropped must read above it), and time kernel, plain
      version and the library call beside the kernel's bound: K1 at the
-     serving shapes, K2, K3 and K4 at the training shapes;
+     serving shapes, K2, K3 and K4 at the training shapes. K1 and K2 are
+     checked on each of their routes (sm90 for bf16/fp16 at the models'
+     head dims, in fp16 too and at ragged Sq, Sk under one tile, head dims
+     64 and 128 and one batch*head; mma at head dim 36; f32), each call
+     asserting the route it launched on; at the main shapes the mma.sync
+     kernel they replaced is timed beside them;
   4. serving: a full-width SD1.5 ConsistentID bundle (bf16, LoRA rank 128,
      4 IP tokens, ViT-H, CLIP-L, full VAE; random weights from a seed) runs
      generate() at batch 4, 50 DDIM steps, 512 px; checks the output and
-     that K1 was launched 500 times and K2-K6 none;
+     that K1 was launched 500 times, all on the sm90 route, and K2-K6 none;
   5. serving path checks: one full-width UNet call through K1 and through
      its plain version; one UNet call under torch.profiler;
   6. training: the same bundle with fp32 trainable masters takes 1 warm-up
      and 5 timed AdamW steps of the adapter objective (batch 2, 512 px,
      synthetic batch); checks finite losses, a nonzero first gradient on
      every trainable leaf, moved trainable and bit-identical frozen
-     parameters, and 10 launches each of K2, K3 and K4 (and none of K1,
-     K5, K6) per step; one step under torch.profiler;
+     parameters, and 10 launches each of K2 (on the sm90 route), K3 and K4
+     (and none of K1, K5, K6) per step; one step under torch.profiler;
   7. training path checks: one full-width UNet forward and backward through
      K2-K4, each of its 10 calls held against the plain versions on its own
      inputs (K3 and K4 at their own precision) and so are the LoRA leaves
@@ -44,8 +51,8 @@ Phases, each printing its result; any failure exits non-zero:
  11. generate from the photo alone: the serving bundle with the face parser,
      the face embedder and a full-width safety checker (ViT-L/14, 24
      layers) runs the headline request with no injected labels or
-     embedding; checks 500 K1 launches (none of K2-K6) and a (4,) flag
-     array.
+     embedding; checks 500 K1 launches on the sm90 route (none of K2-K6)
+     and a (4,) flag array.
 Phase 9 runs after phase 3, phases 10 and 11 after phase 5 (before the
 bundle is trained).
 Kernel times on the card are `cuda_ms`: CUDA events around calls the host
@@ -188,6 +195,44 @@ def attention_bound(b, h, sq, sk, d, itemsize, tensor_cores, kind="fwd"):
     return bound, by, limiter
 
 
+def mma_call(q, k, v, lse: bool = False):
+    """A call of K1's (lse=False) or K2's mma.sync kernel on bf16/fp16 q, k,
+    v, through its C entry point and not the wrapper, so no launch is
+    counted: the earlier design, timed beside the sm90 kernel in one run."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    b, h, sq, d = q.shape
+    code = fa._DTYPE_CODES[q.dtype]
+    out = torch.empty_like(q)
+    stat = torch.empty((b, h, sq), device=q.device) if lse else None
+    symbol, extra = (("cid_flash_attention_forward_lse", (stat,)) if lse
+                     else ("cid_flash_attention_forward", ()))
+    return lambda: fa._launch(symbol, q.device, q, k, v, out, *extra, b * h,
+                              sq, k.shape[2], d, 1.0 / math.sqrt(d), code)
+
+
+def expected_route(dtype, d) -> str:
+    """The route a K1/K2 call of this dtype and head dim must take on
+    16-byte aligned inputs with the default scale."""
+    import torch
+    if dtype == torch.float32:
+        return "f32"
+    return "sm90" if d % 8 == 0 and d <= 128 else "mma"
+
+
+def counted_call(wrapper, fn, route: str):
+    """fn() through `wrapper`; fails unless it launched once, on `route`."""
+    import torch
+    before = dict(wrapper.launches_by_route)
+    result = fn()
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in wrapper.launches_by_route.items()}
+    if moved != {r: int(r == route) for r in moved}:
+        raise AssertionError(f"{wrapper.__name__}: launches by route {moved},"
+                             f" expected one on {route}")
+    return result
+
+
 def kernel_phase():
     import torch
     import torch.nn.functional as F
@@ -198,10 +243,20 @@ def kernel_phase():
                                             drop_last_tile, rel_l2)
 
     gen = torch.Generator("cuda").manual_seed(0)
-    # limits on the relative L2 error: consistentid_torch/testing.py
+    # limits on the relative L2 error: consistentid_torch/testing.py;
+    # iters None: held to the limit, not timed
     cases = [
         ("level0", (8, 8, 4096, 40), 4096, torch.bfloat16, 20),
         ("level1", (8, 8, 1024, 80), 1024, torch.bfloat16, 50),
+        ("level0_fp16", (8, 8, 4096, 40), 4096, torch.float16, None),
+        ("level1_fp16", (8, 8, 1024, 80), 1024, torch.float16, None),
+        ("ragged_bf16_d40", (2, 3, 1000, 40), 1037, torch.bfloat16, None),
+        ("ragged_fp16_d80", (2, 3, 1000, 80), 1037, torch.float16, None),
+        ("short_keys_bf16", (2, 2, 300, 40), 50, torch.bfloat16, None),
+        ("ragged_fp16_d64", (2, 4, 777, 64), 900, torch.float16, None),
+        ("ragged_bf16_d128", (2, 2, 500, 128), 333, torch.bfloat16, None),
+        ("one_head_bf16", (1, 1, 4096, 40), 4096, torch.bfloat16, None),
+        ("mma_bf16_d36", (1, 2, 77, 36), 99, torch.bfloat16, None),
         ("ragged_fp32_d40", (2, 3, 1000, 40), 1037, torch.float32, 20),
         ("ragged_fp32_d64", (2, 4, 500, 64), 700, torch.float32, 20),
     ]
@@ -209,36 +264,102 @@ def kernel_phase():
     for name, (b, h, sq, d), sk, dtype, iters in cases:
         tol = (KERNEL_REL_L2_FP32 if dtype == torch.float32
                else KERNEL_REL_L2_16BIT)
+        route = expected_route(dtype, d)
         q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
-        out = flash_attention_fwd(q, k, v)
-        torch.cuda.synchronize()
+        out = counted_call(flash_attention_fwd,
+                           lambda: flash_attention_fwd(q, k, v), route)
         ref = flash_attention_plain(q, k, v)
         cut = drop_last_tile(sk)
         control = rel_l2(flash_attention_plain(q, k[:, :, :cut],
                                                v[:, :, :cut]), ref)
         err = (out.float() - ref.float()).abs().max().item()
         rel = rel_l2(out, ref)
-        check(f"K1 {name} o", rel, control, tol)
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                         iters)
-        bound, by, limiter = attention_bound(
-            b, h, sq, sk, d, q.element_size(), dtype != torch.float32, "k1")
+        check(f"K1 {name} o ({route})", rel, control, tol)
         row = dict(case=name, shape=[b, h, sq, d], sk=sk,
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                   rel_l2=rel, control_rel_l2=control, tolerance=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                   bound_by=by, bound_limiter=limiter)
+                   dtype=str(dtype).replace("torch.", ""), route=route,
+                   max_abs_err=err, rel_l2=rel, control_rel_l2=control,
+                   tolerance=tol)
+        timed = ""
+        if iters is not None:
+            ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters)
+            mma_ms = (cuda_ms(mma_call(q, k, v), iters) if route == "sm90"
+                      else None)
+            plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                             iters)
+            bound, by, limiter = attention_bound(
+                b, h, sq, sk, d, q.element_size(), dtype != torch.float32,
+                "k1")
+            row.update(ms=ms, mma_ms=mma_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       bound_limiter=limiter)
+            timed = (f", kernel {ms:.4f} ms"
+                     + ("" if mma_ms is None else
+                        f" (mma.sync kernel {mma_ms:.4f} ms)")
+                     + f", plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                     f"bound {bound:.4f} ms ({limiter})")
         rows.append(row)
-        log(f"K1 {name} {b}x{h}x{sq}x{d} sk={sk} {row['dtype']}: "
+        log(f"K1 {name} {b}x{h}x{sq}x{d} sk={sk} {row['dtype']} {route}: "
             f"rel_l2 {rel:.3g} (limit {tol:g}; control {control:.3g}), "
-            f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({limiter})")
+            f"max_abs_err {err:.3g}{timed}")
     return rows
+
+
+def kernel_resources():
+    """Each library's kernels, from the ptxas report kept beside it:
+    registers per thread, static shared memory, stack and spill bytes, and
+    ptxas's remarks on wgmma; where cuobjdump exists, the count of HGMMA
+    (wgmma), UTMALDG (TMA load) and LDGSTS (cp.async) instructions in each
+    kernel's SASS. Logged, and returned by library."""
+    import re
+    import shutil
+    from consistentid_torch.ops import build
+
+    beside_nvcc = Path(build.find_nvcc()).parent / "cuobjdump"
+    cuobjdump = shutil.which("cuobjdump") or (
+        str(beside_nvcc) if beside_nvcc.exists() else None)
+    cxxfilt = shutil.which("c++filt")
+    out = {}
+    for lib, sources in build.LIBRARIES.items():
+        text = build.load_report(lib) or ""
+        kernels = build.ptxas_report(text)
+        names = [k["function"] for k in kernels]
+        if cxxfilt and names:
+            names = subprocess.run([cxxfilt], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   timeout=60).stdout.splitlines()
+        sass = {}
+        if cuobjdump:
+            dump = subprocess.run(
+                [cuobjdump, "-sass", str(build.library_path(lib, sources))],
+                capture_output=True, text=True, timeout=300).stdout
+            fn = None
+            for line in dump.splitlines():
+                found = re.search(r"Function : (\S+)", line)
+                if found:
+                    fn = found.group(1)
+                    sass[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "LDGSTS"), 0)
+                elif fn is not None:
+                    for op in sass[fn]:
+                        sass[fn][op] += op in line
+        rows = []
+        for k, pretty in zip(kernels, names):
+            short = pretty.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0] if "(" in short else short
+            rows.append(dict(k, kernel=short, sass=sass.get(k["function"])))
+            log(f"  {lib}: {short}: {k['registers']} registers, "
+                f"{k['shared_bytes']} B static smem, stack {k['stack_bytes']}"
+                f" B, spills {k['spill_stores']}/{k['spill_loads']} B"
+                + ("" if rows[-1]["sass"] is None else
+                   f", SASS {rows[-1]['sass']}"))
+        remarks = [line.strip() for line in text.splitlines()
+                   if "wgmma" in line.lower()]
+        for line in remarks:
+            log(f"  {lib}: {line}")
+        out[lib] = dict(kernels=rows, wgmma_remarks=remarks)
+    return out
 
 
 def launch_counters():
@@ -279,7 +400,8 @@ def train_kernel_phase():
     """K2, K3 and K4 against their plain versions at the training shapes
     (batch 2: level 0 (2, 8, 4096, 40), level 1 (2, 8, 1024, 80), bf16), at
     a ragged bf16 shape and at two ragged fp32 shapes; times of kernel,
-    plain version and SDPA."""
+    plain version and SDPA (K2 at the training shapes also its mma.sync
+    kernel's); then K2 alone on the routes' edge cases (`k2_route_cases`)."""
     import torch
     import torch.nn.functional as F
     from consistentid_torch.ops import flash_attention as fa
@@ -305,8 +427,9 @@ def train_kernel_phase():
         tol = KERNEL_REL_L2_16BIT if bf16 else KERNEL_REL_L2_FP32
         q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                        for s in (shape, (b, h, sk, d), (b, h, sk, d), shape))
-        out, lse = fa.flash_attention_lse(q, k, v)
-        torch.cuda.synchronize()
+        route = expected_route(dtype, d)
+        out, lse = counted_call(fa.flash_attention_lse,
+                                lambda: fa.flash_attention_lse(q, k, v), route)
         ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v)
         delta = (do.float() * ref_out.float()).sum(-1)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta)
@@ -352,6 +475,10 @@ def train_kernel_phase():
             readings[kname] = dict(rel_l2=max(rels), control_rel_l2=min(ctls),
                                    max_abs_err=max(errs),
                                    same_precision_rel_l2=max(sames, default=None))
+        readings["K2"]["route"] = route
+        readings["K2"]["mma_ms"] = (
+            cuda_ms(mma_call(q, k, v, lse=True), iters)
+            if route == "sm90" and name.startswith("level") else None)
 
         tc = dtype != torch.float32
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -391,13 +518,67 @@ def train_kernel_phase():
             rows[kname].append(row)
             same_txt = ("" if r["same_precision_rel_l2"] is None else
                         f", at its own precision {r['same_precision_rel_l2']:.3g}")
-            log(f"{kname} {name} {b}x{h}x{sq}x{d} sk={sk} {row['dtype']}: "
+            mma_txt = ("" if r.get("mma_ms") is None else
+                       f" (mma.sync kernel {r['mma_ms']:.4f} ms)")
+            log(f"{kname} {name} {b}x{h}x{sq}x{d} sk={sk} {row['dtype']}"
+                f"{' ' + r['route'] if 'route' in r else ''}: "
                 f"rel_l2 {r['rel_l2']:.3g} (limit {tol:g}; control "
                 f"{r['control_rel_l2']:.3g}{same_txt}), max_abs_err "
-                f"{r['max_abs_err']:.3g}, kernel {ms:.4f} ms, plain "
+                f"{r['max_abs_err']:.3g}, kernel {ms:.4f} ms{mma_txt}, plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                 f"{bound:.4f} ms ({limiter})")
         del leaves, sdpa_out
+    rows["K2"] += k2_route_cases()
+    return rows
+
+
+def k2_route_cases():
+    """K2 alone, held and not timed, on what the training shapes leave out:
+    fp16 at both levels, Sq and Sk ragged at head dims 80, 64 and 128, Sk
+    under one key tile, one batch*head, and a head dim (36) that must take
+    the mma route. Its o by relative L2 with the dropped-tile control, its
+    lse within 1e-4."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.testing import (KERNEL_REL_L2_16BIT,
+                                            drop_last_tile, rel_l2)
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    cases = [
+        ("level0_fp16", (2, 8, 4096, 40), 4096, torch.float16),
+        ("level1_fp16", (2, 8, 1024, 80), 1024, torch.float16),
+        ("ragged_fp16_d80", (2, 3, 1000, 80), 1037, torch.float16),
+        ("short_keys_bf16", (2, 2, 300, 40), 50, torch.bfloat16),
+        ("ragged_bf16_d64", (2, 4, 777, 64), 900, torch.bfloat16),
+        ("ragged_fp16_d128", (2, 2, 500, 128), 333, torch.float16),
+        ("one_head_bf16", (1, 1, 4096, 40), 4096, torch.bfloat16),
+        ("mma_fp16_d36", (1, 2, 77, 36), 99, torch.float16),
+    ]
+    rows = []
+    for name, (b, h, sq, d), sk, dtype in cases:
+        route = expected_route(dtype, d)
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, h, sk, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        out, lse = counted_call(fa.flash_attention_lse,
+                                lambda: fa.flash_attention_lse(q, k, v), route)
+        ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v)
+        cut = drop_last_tile(sk)
+        control = rel_l2(fa.flash_attention_lse_plain(
+            q, k[:, :, :cut], v[:, :, :cut])[0], ref_out)
+        rel = rel_l2(out, ref_out)
+        check(f"K2 {name} o ({route})", rel, control, KERNEL_REL_L2_16BIT)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= 1e-4:
+            raise AssertionError(f"K2 {name}: lse off by {lse_err}")
+        err = (out.float() - ref_out.float()).abs().max().item()
+        rows.append(dict(case=name, shape=[b, h, sq, d], sk=sk,
+                         dtype=str(dtype).replace("torch.", ""), route=route,
+                         rel_l2=rel, control_rel_l2=control, lse_err=lse_err,
+                         max_abs_err=err, tolerance=KERNEL_REL_L2_16BIT))
+        log(f"K2 {name} {b}x{h}x{sq}x{d} sk={sk} {rows[-1]['dtype']} "
+            f"{route}: rel_l2 {rel:.3g} (limit {KERNEL_REL_L2_16BIT:g}; "
+            f"control {control:.3g}), lse off by {lse_err:.3g}")
     return rows
 
 
@@ -448,8 +629,7 @@ def main_path():
 
     torch.cuda.reset_peak_memory_stats()
     counters = launch_counters() + bn_counters()
-    for w in counters:
-        w.launches = 0
+    fa.reset_launches(*counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     images = pipe.generate(PROMPT, face, seed=1, num_inference_steps=50,
@@ -457,24 +637,27 @@ def main_path():
     out = postprocess_to_uint8(images)
     seconds = time.perf_counter() - t0
     launches = fa.flash_attention_fwd.launches
+    by_route = dict(fa.flash_attention_fwd.launches_by_route)
     others = [w.launches for w in counters[1:]]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     if out.shape != (4, 512, 512, 3) or out.dtype != np.uint8:
         raise AssertionError(f"output {out.shape} {out.dtype}")
     if not torch.isfinite(images.float()).all():
         raise AssertionError("non-finite decoded images")
-    if launches != 500 or any(others):
-        raise AssertionError(f"K1 launched {launches} times, expected 500 "
-                             "(10 per UNet call x 50 steps); K2-K6 "
-                             f"{others}, expected none")
+    if launches != 500 or by_route["sm90"] != 500 or any(others):
+        raise AssertionError(f"K1 launched {launches} times ({by_route}), "
+                             "expected 500 (10 per UNet call x 50 steps), "
+                             f"all on the sm90 route; K2-K6 {others}, "
+                             "expected none")
     stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
     log(f"main path: generate batch 4, 50 DDIM steps, 512 px: "
         f"{seconds:.3f} s, {4 / seconds * 60:.2f} images/min, "
         f"stages ms {stages}, peak memory {peak_gib:.2f} GiB, "
-        f"K1 launches {launches}, image std {float(images.float().std()):.4f}")
+        f"K1 launches {launches} {by_route}, image std "
+        f"{float(images.float().std()):.4f}")
     return bundle, dict(seconds=seconds, images_per_min=4 / seconds * 60,
                         stage_ms=stages, peak_gib=peak_gib, launches=launches,
-                        bn_launches=others[3:])
+                        launches_by_route=by_route, bn_launches=others[3:])
 
 
 def unet_path_check(bundle):
@@ -560,6 +743,7 @@ def training_path(bundle):
     2, 512 px, 5 localization layers, lr 1e-4) on a synthetic batch."""
     import torch
     from consistentid_torch.core import SchedulerConfig, TrainConfig
+    from consistentid_torch.ops import flash_attention as fa
     from consistentid_torch.sampling import NoiseSchedule
     from consistentid_torch.training import (create_train_state,
                                              make_train_step, synthetic_batch,
@@ -595,8 +779,7 @@ def training_path(bundle):
                              f"non-finite first gradient: {no_grad[:5]}")
 
     counters = launch_counters() + bn_counters()
-    for w in counters:
-        w.launches = 0
+    fa.reset_launches(*counters)
     torch.cuda.reset_peak_memory_stats()
     n_steps = 5
     step_metrics = []
@@ -608,15 +791,18 @@ def training_path(bundle):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = [w.launches for w in counters]
+    k2_routes = dict(fa.flash_attention_lse.launches_by_route)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses += [float(m["loss"]) for m in step_metrics]
     s_per_step = seconds / n_steps
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if launches != [0] + [10 * n_steps] * 3 + [0, 0]:
+    if launches != [0] + [10 * n_steps] * 3 + [0, 0] or \
+            k2_routes["sm90"] != 10 * n_steps:
         raise AssertionError(f"launches K1-K6 over {n_steps} steps: "
-                             f"{launches}, expected 10 per step each of "
-                             "K2-K4 and none of K1, K5, K6")
+                             f"{launches} (K2 {k2_routes}), expected 10 per "
+                             "step each of K2-K4, K2's all on the sm90 "
+                             "route, and none of K1, K5, K6")
     still = [n for n, p in state.trainable.items()
              if torch.equal(p, train0[n])]
     changed = [n for n, p in state.frozen.items()
@@ -630,11 +816,12 @@ def training_path(bundle):
         f"{warm_s:.2f} s warm-up: {s_per_step:.4f} s/step, "
         f"{2 / s_per_step:.3f} examples/s, peak memory {peak_gib:.2f} GiB, "
         f"{n_train / 1e6:.1f} M trainable fp32 params, launches K1-K6 "
-        f"{launches}, losses {[round(x, 5) for x in losses]}")
+        f"{launches} (K2 {k2_routes}), losses "
+        f"{[round(x, 5) for x in losses]}")
     return state, dict(s_per_step=s_per_step, examples_per_s=2 / s_per_step,
                        warmup_s=warm_s, peak_gib=peak_gib, losses=losses,
-                       launches=launches, trainable_params=n_train,
-                       steps=n_steps)
+                       launches=launches, k2_launches_by_route=k2_routes,
+                       trainable_params=n_train, steps=n_steps)
 
 
 def profile_train_step(bundle, state, top: int = 14):
@@ -681,8 +868,8 @@ def profile_train_step(bundle, state, top: int = 14):
 
 class Recorder:
     """Stands in for a kernel's wrapper and keeps each call's arguments and
-    results; the wrapper still launches, and its launch counter (which it
-    reaches through its module name) stays the wrapper's own."""
+    results; the wrapper still launches, and its launch counters (which it
+    reaches through its module name) stay the wrapper's own."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
@@ -695,6 +882,9 @@ class Recorder:
 
     launches = property(lambda self: self.wrapper.launches,
                         lambda self, n: setattr(self.wrapper, "launches", n))
+    launches_by_route = property(
+        lambda self: self.wrapper.launches_by_route,
+        lambda self, n: setattr(self.wrapper, "launches_by_route", n))
 
 
 @contextmanager
@@ -1314,6 +1504,7 @@ def photo_generate(bundle, parser, embedder, checker):
     import numpy as np
     import torch
     from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.ops import flash_attention as fa
     from consistentid_torch.pipelines import ConsistentIDPipeline
     from consistentid_torch.testing import synthetic_clip_tokenizer
 
@@ -1328,30 +1519,32 @@ def photo_generate(bundle, parser, embedder, checker):
                                               np.uint8)
     checker_ms = host_ms(lambda: checker(sample), 5)
     counters = launch_counters() + bn_counters()
-    for w in counters:
-        w.launches = 0
+    fa.reset_launches(*counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = pipe.generate(PROMPT, face, seed=2, num_images_per_prompt=4)
     seconds = time.perf_counter() - t0
     launches = [w.launches for w in counters]
+    by_route = dict(fa.flash_attention_fwd.launches_by_route)
     flags = pipe.last_nsfw_flags
     if out.shape != (4, 512, 512, 3) or out.dtype != np.uint8:
         raise AssertionError(f"output {out.shape} {out.dtype}")
     if flags is None or np.asarray(flags).shape != (4,):
         raise AssertionError(f"nsfw flags {flags}")
-    if launches != [500, 0, 0, 0, 0, 0]:
-        raise AssertionError(f"launches K1-K6 {launches}, expected K1 500 "
-                             "and no other")
+    if launches != [500, 0, 0, 0, 0, 0] or by_route["sm90"] != 500:
+        raise AssertionError(f"launches K1-K6 {launches} (K1 {by_route}), "
+                             "expected K1 500, all on the sm90 route, and "
+                             "no other")
     stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
     log(f"generate from the photo (batch 4, 50 DDIM steps, 512 px, parser,"
         f" embedder and safety checker): {seconds:.3f} s, "
         f"{4 / seconds * 60:.2f} images/min, stages ms {stages}; safety "
         f"checker alone (4 images) {checker_ms:.2f} ms; flags "
-        f"{np.asarray(flags).tolist()}; launches K1-K6 {launches}; output "
-        f"mean {float(out.mean()):.2f}")
+        f"{np.asarray(flags).tolist()}; launches K1-K6 {launches} (K1 "
+        f"{by_route}); output mean {float(out.mean()):.2f}")
     return dict(seconds=seconds, images_per_min=4 / seconds * 60,
                 stage_ms=stages, checker_ms=checker_ms, launches=launches,
+                launches_by_route=by_route,
                 nsfw_flags=np.asarray(flags).tolist())
 
 
@@ -1384,6 +1577,7 @@ def main() -> int:
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR.name}/ in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel: "
         f"{build.build_seconds or 'cached'})")
+    resources = kernel_resources()
 
     k1_rows = kernel_phase()
     train_rows = train_kernel_phase()
@@ -1412,15 +1606,27 @@ def main() -> int:
                 "library_ms": top["library_ms"], "library": library,
                 "shapes": rows}
 
-    fwd_src = "consistentid_torch/csrc/flash_attention.cu"
+    fwd_src = "consistentid_torch/csrc/flash_attention_sm90.cu"
     bwd_src = "consistentid_torch/csrc/flash_attention_bwd.cu"
     jax_src = "consistentid_tpu/ops/flash_attention.py"
     k2, k3, k4 = train["launches"][1:4]
+    sm90 = resources["flash_attention_sm90"]
+    sm90_info = dict(
+        dispatch="sm90 (wgmma + TMA); mma.sync (flash_attention.cu) for "
+                 "other 16-bit shapes, SIMT for fp32",
+        mma_ms=k1_rows[0]["mma_ms"],
+        kernel_resources=[k for k in sm90["kernels"]
+                          if "flash_fwd_sm90_kernel" in k["kernel"]],
+        wgmma_remarks=sm90["wgmma_remarks"])
     kernels = [
-        entry("flash_attention_fwd (K1)", fwd_src, f"{jax_src}:63",
-              main["launches"], k1_rows, "sdpa forward"),
-        entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234", k2,
-              train_rows["K2"], "sdpa forward, inputs requiring grad"),
+        {**entry("flash_attention_fwd (K1)", fwd_src, f"{jax_src}:63",
+                 main["launches"], k1_rows, "sdpa forward"), **sm90_info,
+         "launches_by_route": main["launches_by_route"],
+         "photo_launches_by_route": photo["launches_by_route"]},
+        {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
+                 k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
+         **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
+         "launches_by_route": train["k2_launches_by_route"]},
         entry("flash_attention_bwd_dq (K3)", bwd_src, f"{jax_src}:273", k3,
               train_rows["K3"], "sdpa backward alone (dq, dk, dv: K3 + K4)"),
         entry("flash_attention_bwd_dkv (K4)", bwd_src, f"{jax_src}:308", k4,
@@ -1450,6 +1656,7 @@ def main() -> int:
                     "training_path": train, "train_profile": train_profile,
                     "training_unet_path_check": train_path,
                     "tiny_train_card_vs_cpu": tiny_train,
+                    "kernel_resources": resources,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

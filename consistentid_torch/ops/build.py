@@ -5,27 +5,32 @@ under `build/kernels/` beside the package, named by a hash of its sources,
 the shared headers and the compile command, and loaded with ctypes.
 A library is built at first use in a process and reused afterwards; a
 missing `nvcc` or a failed build raises. Nothing here runs at import time.
+nvcc runs with `-Xptxas -v`; its report (registers, shared memory and
+spills of every kernel) is kept beside the library as `<library>.ptxas.txt`
+and read by `ptxas_report`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every library of the port: name -> its csrc sources
 LIBRARIES: Dict[str, Sequence[str]] = {
-    "flash_attention": ("flash_attention.cu",),        # K1, K2
+    "flash_attention": ("flash_attention.cu",),        # K1, K2 (mma, f32)
+    "flash_attention_sm90": ("flash_attention_sm90.cu",),  # K1, K2 (sm90)
     "flash_attention_bwd": ("flash_attention_bwd.cu",),  # K3, K4
     "fused_bn_act": ("fused_bn_act.cu",),                # K5, K6
 }
@@ -66,6 +71,50 @@ def library_path(name: str, source_names: Sequence[str]) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(sources)}.so"
 
 
+def report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?, (\d+) bytes smem)?")
+
+
+def ptxas_report(text: str) -> List[Dict]:
+    """Per kernel of an `nvcc -Xptxas -v` report: its (mangled) name, the
+    registers a thread uses, its static shared memory (bytes), stack frame
+    and spill stores and loads (bytes), in the order ptxas compiled them."""
+    kernels: List[Dict] = []
+    for line in text.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            kernels.append(dict(function=entry.group(1), registers=None,
+                                shared_bytes=0, stack_bytes=0,
+                                spill_stores=0, spill_loads=0))
+            continue
+        if not kernels:
+            continue
+        spills = _SPILLS.search(line)
+        used = _USED.search(line)
+        if spills:
+            kernels[-1].update(stack_bytes=int(spills.group(1)),
+                               spill_stores=int(spills.group(2)),
+                               spill_loads=int(spills.group(3)))
+        elif used:
+            kernels[-1]["registers"] = int(used.group(1))
+            if used.group(2):
+                kernels[-1]["shared_bytes"] = int(used.group(2))
+    return kernels
+
+
+def load_report(name: str) -> Optional[str]:
+    """The kept ptxas report of library `name`, or None when it has not
+    been built here."""
+    path = report_path(library_path(name, LIBRARIES[name]))
+    return path.read_text() if path.exists() else None
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library `name` of LIBRARIES. Calls for
     different libraries may run in parallel threads: each runs its own
@@ -86,6 +135,7 @@ def load_library(name: str) -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed building {name}:\n"
                                    f"{proc.stdout}\n{proc.stderr}")
+            report_path(out).write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):

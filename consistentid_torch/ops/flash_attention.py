@@ -3,19 +3,29 @@ versions, and the autograd Function that joins them.
 
 The kernels replace the JAX package's Pallas TPU kernels
 (consistentid_tpu/ops/flash_attention.py):
-  K1 `flash_attention_fwd`     <- `_flash_kernel`          (flash_attention.cu)
-  K2 `flash_attention_lse`     <- `_flash_fwd_lse_kernel`  (flash_attention.cu)
+  K1 `flash_attention_fwd`     <- `_flash_kernel`          (..._sm90.cu,
+                                                             flash_attention.cu)
+  K2 `flash_attention_lse`     <- `_flash_fwd_lse_kernel`  (..._sm90.cu,
+                                                             flash_attention.cu)
   K3 `flash_attention_bwd_dq`  <- `_flash_bwd_dq_kernel`   (..._bwd.cu)
   K4 `flash_attention_bwd_dkv` <- `_flash_bwd_dkv_kernel`  (..._bwd.cu)
 with the sources in csrc/.
 The source files' headers state what bounds each on an H100 and how its
 design answers.
 
+K1 and K2 have three kernels, chosen by `forward_route` from the call's
+dtype, head dim, alignment and scale, never by failure: "sm90" (wgmma fed by
+TMA, flash_attention_sm90.cu) for bf16/fp16 with head_dim a multiple of 8 up
+to 128, 16-byte aligned q, k, v and a positive scale, which is every shape
+the models produce; "mma" (mma.sync, flash_attention.cu) for any other
+16-bit call; "f32" (SIMT, flash_attention.cu) for fp32.
+
 Every wrapper takes (B, H, S, D) tensors (lse and delta (B, H, Sq) fp32). A
 CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (`flash_attention_plain`, `flash_attention_lse_plain`,
 `flash_attention_bwd_plain`), which is also what each kernel is held against
-on the card. Each launch adds one to the wrapper's `.launches`.
+on the card. Each launch adds one to the wrapper's `.launches`; K1's and
+K2's wrappers split that count by route in `.launches_by_route`.
 
 `flash_attention` is the entry point, the counterpart of the JAX package's
 differentiable `flash_attention` (custom VJP `_flash_diff`): when autograd
@@ -39,12 +49,15 @@ PLAIN_BLOCK_Q = 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_FWD_ARGS = [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]
+_LSE_ARGS = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P]
 _SIGNATURES = {
     # symbol: (library, argtypes)
-    "cid_flash_attention_forward":
-        ("flash_attention", [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]),
-    "cid_flash_attention_forward_lse":
-        ("flash_attention", [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P]),
+    "cid_flash_attention_forward": ("flash_attention", _FWD_ARGS),
+    "cid_flash_attention_forward_lse": ("flash_attention", _LSE_ARGS),
+    "cid_flash_attention_forward_sm90": ("flash_attention_sm90", _FWD_ARGS),
+    "cid_flash_attention_forward_lse_sm90":
+        ("flash_attention_sm90", _LSE_ARGS),
     "cid_flash_attention_backward_dq":
         ("flash_attention_bwd",
          [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P]),
@@ -124,6 +137,57 @@ def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
 
 def _stat_dtype(q: torch.Tensor) -> torch.dtype:
     return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+# ---------------------------------------------------------------- routes
+
+ROUTES = ("sm90", "mma", "f32")
+# K1/K2's C entry point per route: (forward, forward with lse)
+_ROUTE_SYMBOLS = {
+    "sm90": ("cid_flash_attention_forward_sm90",
+             "cid_flash_attention_forward_lse_sm90"),
+    "mma": ("cid_flash_attention_forward", "cid_flash_attention_forward_lse"),
+    "f32": ("cid_flash_attention_forward", "cid_flash_attention_forward_lse"),
+}
+
+
+def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sm_scale: Optional[float] = None) -> str:
+    """The kernel a CUDA call of K1 or K2 launches: "sm90" when TMA can load
+    the tensors (bf16 or fp16, head_dim a multiple of 8 up to 128, every base
+    pointer 16-byte aligned) and the scale is positive (the kernel folds it
+    into the running max); "mma" for any other 16-bit call; "f32" for fp32."""
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        return "f32"
+    d = q.shape[-1]
+    if (d % 8 == 0 and d <= MAX_HEAD_DIM and _scale(q, sm_scale) > 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "sm90"
+    return "mma"
+
+
+def sm90_padded_depth(head_dim: int) -> int:
+    """The depth the sm90 kernel pads head_dim to in shared memory (its
+    template instantiations, flash_attention_sm90.cu): 40 -> 48, 64, 80 and
+    128 as they are, any other multiple of 8 to the first that holds it."""
+    if head_dim % 8 != 0 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"the sm90 kernel takes no head_dim {head_dim}")
+    return next(dp for dp in (48, 64, 80, 128) if head_dim <= dp)
+
+
+def _count(wrapper, route: str) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the launch counts of the given wrappers (default K1-K4) to 0,
+    their split by route too."""
+    for w in wrappers or (flash_attention_fwd, flash_attention_lse,
+                          flash_attention_bwd_dq, flash_attention_bwd_dkv):
+        w.launches = 0
+        if hasattr(w, "launches_by_route"):
+            w.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 # ------------------------------------------------------------ plain versions
@@ -211,10 +275,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale)
     b, h, sq, d = q.shape
+    route = forward_route(q, k, v, sm_scale)
     out = torch.empty_like(q)
-    _launch("cid_flash_attention_forward", q.device, q, k, v, out, b * h, sq,
+    _launch(_ROUTE_SYMBOLS[route][0], q.device, q, k, v, out, b * h, sq,
             k.shape[2], d, float(sm_scale), _DTYPE_CODES[q.dtype])
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, route)
     return out
 
 
@@ -227,11 +292,12 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, sm_scale)
     b, h, sq, d = q.shape
+    route = forward_route(q, k, v, sm_scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch("cid_flash_attention_forward_lse", q.device, q, k, v, out, lse,
+    _launch(_ROUTE_SYMBOLS[route][1], q.device, q, k, v, out, lse,
             b * h, sq, k.shape[2], d, float(sm_scale), _DTYPE_CODES[q.dtype])
-    flash_attention_lse.launches += 1
+    _count(flash_attention_lse, route)
     return out, lse
 
 
@@ -273,9 +339,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta,
     return dk, dv
 
 
-for _wrapper in (flash_attention_fwd, flash_attention_lse,
-                 flash_attention_bwd_dq, flash_attention_bwd_dkv):
-    _wrapper.launches = 0
+flash_attention_fwd.launches_by_route = {}
+flash_attention_lse.launches_by_route = {}
+reset_launches()
 
 
 # ------------------------------------------------------------------ autograd

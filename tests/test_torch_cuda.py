@@ -1,6 +1,7 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version,
 for each dtype and head-dim (K1-K4) or channel-layout (K5, K6)
-instantiation, ragged tails included; the autograd Function's gradients
+instantiation, ragged tails included, K1's and K2's route (sm90, mma or
+f32) asserted from the launch counts; the autograd Function's gradients
 through the kernels against those through the plain versions; what the
 wrappers refuse; two perception networks on the card against the CPU. Needs
 an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it runs on a
@@ -47,6 +48,13 @@ def cuda_generator():
     ((2, 3, 1000, 40), 1037, torch.float32, 1e-5),
     ((2, 3, 333, 64), 517, torch.float32, 1e-5),
     ((1, 2, 130, 128), 70, torch.float32, 1e-5),
+    # the sm90 route's edges: fp16 at full width, Sq and Sk ragged at head
+    # dims 80 and 128, Sk under one key tile, one batch*head
+    ((1, 8, 4096, 40), 4096, torch.float16, 1e-2),
+    ((2, 3, 1000, 80), 1037, torch.float16, 1e-2),
+    ((2, 2, 500, 128), 333, torch.bfloat16, 1e-2),
+    ((2, 2, 300, 40), 50, torch.bfloat16, 1e-2),
+    ((1, 1, 4096, 40), 4096, torch.bfloat16, 1e-2),
 ])
 def test_kernel_matches_plain(cuda_generator, shape, sk, dtype, atol):
     g = cuda_generator
@@ -54,16 +62,41 @@ def test_kernel_matches_plain(cuda_generator, shape, sk, dtype, atol):
     q = torch.randn(shape, generator=g, device="cuda").to(dtype)
     k = torch.randn((b, h, sk, d), generator=g, device="cuda").to(dtype)
     v = torch.randn((b, h, sk, d), generator=g, device="cuda").to(dtype)
-    before = port_flash.flash_attention_fwd.launches
+    wrapper = port_flash.flash_attention_fwd
+    before = wrapper.launches
+    routes = dict(wrapper.launches_by_route)
     out = port_flash.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert port_flash.flash_attention_fwd.launches == before + 1
+    assert wrapper.launches == before + 1
+    _assert_one_launch_on(wrapper, routes, _expected_route(dtype, d))
     assert out.dtype == dtype and out.shape == shape
     ref = port_flash.flash_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
     cut = drop_last_tile(sk)
     _assert_rel_l2(out, ref, dtype, port_flash.flash_attention_plain(
         q, k[:, :, :cut], v[:, :, :cut]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True])
+def test_misaligned_view_takes_mma_route(cuda_generator, lse):
+    """A contiguous q one element into its storage is off 16 bytes, which
+    TMA cannot load: K1 and K2 take the mma.sync kernel, by the route
+    function and not by a failure, and still match the plain version."""
+    shape, sk = (2, 3, 333, 40), 517
+    q, k, v, _ = _inputs(cuda_generator, shape, sk, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    q = buf[1:].view(shape).copy_(q)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert port_flash.forward_route(q, k, v) == "mma"
+    wrapper = (port_flash.flash_attention_lse if lse
+               else port_flash.flash_attention_fwd)
+    routes = dict(wrapper.launches_by_route)
+    out = wrapper(q, k, v)
+    torch.cuda.synchronize()
+    _assert_one_launch_on(wrapper, routes, "mma")
+    ref = port_flash.flash_attention_plain(q, k, v)
+    _assert_rel_l2(out[0] if lse else out, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -88,6 +121,30 @@ BWD_CASES = [
     ((2, 3, 333, 64), 517, torch.float32),
     ((1, 2, 130, 128), 70, torch.float32),
 ]
+
+
+# K2 also on the sm90 route's edges (BWD_CASES hold the backward's)
+LSE_CASES = BWD_CASES + [
+    ((2, 8, 4096, 40), 4096, torch.float16),
+    ((2, 3, 1000, 80), 1037, torch.float16),
+    ((2, 2, 500, 128), 333, torch.bfloat16),
+    ((2, 2, 300, 40), 50, torch.bfloat16),
+    ((1, 1, 4096, 40), 4096, torch.float16),
+]
+
+
+def _expected_route(dtype, d):
+    """The kernel a K1/K2 call on 16-byte aligned inputs with the default
+    scale must take: sm90 for bf16/fp16 at head dims that are multiples of 8,
+    mma for other 16-bit head dims, the SIMT kernel for fp32."""
+    if dtype == torch.float32:
+        return "f32"
+    return "sm90" if d % 8 == 0 else "mma"
+
+
+def _assert_one_launch_on(wrapper, before, route):
+    moved = {r: n - before[r] for r, n in wrapper.launches_by_route.items()}
+    assert moved == {r: int(r == route) for r in port_flash.ROUTES}, moved
 
 
 def _inputs(g, shape, sk, dtype):
@@ -118,13 +175,16 @@ def _assert_rel_l2(got, ref, dtype, control=None, same=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,sk,dtype", BWD_CASES)
+@pytest.mark.parametrize("shape,sk,dtype", LSE_CASES)
 def test_lse_kernel_matches_plain(cuda_generator, shape, sk, dtype):
     q, k, v, _ = _inputs(cuda_generator, shape, sk, dtype)
-    before = port_flash.flash_attention_lse.launches
+    wrapper = port_flash.flash_attention_lse
+    before = wrapper.launches
+    routes = dict(wrapper.launches_by_route)
     out, lse = port_flash.flash_attention_lse(q, k, v)
     torch.cuda.synchronize()
-    assert port_flash.flash_attention_lse.launches == before + 1
+    assert wrapper.launches == before + 1
+    _assert_one_launch_on(wrapper, routes, _expected_route(dtype, shape[3]))
     ref_out, ref_lse = port_flash.flash_attention_lse_plain(q, k, v)
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert lse.shape == shape[:3] and torch.isfinite(lse).all()

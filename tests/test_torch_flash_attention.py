@@ -95,3 +95,104 @@ def test_cuda_source_and_build_command():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
 
+
+
+def _route_inputs(shape, dtype, sk=None, offset=0):
+    """q, k, v of `shape` (k, v with sk keys); offset > 0: q a contiguous
+    view that many elements into its storage."""
+    b, h, sq, d = shape
+    buf = torch.zeros(offset + b * h * sq * d, dtype=dtype)
+    q = buf[offset:].view(shape)
+    kv = torch.zeros((b, h, sk or sq, d), dtype=dtype)
+    return q, kv, kv.clone()
+
+
+@pytest.mark.parametrize("shape,dtype,offset,scale,route", [
+    ((8, 8, 4096, 40), torch.bfloat16, 0, None, "sm90"),   # serving L0
+    ((8, 8, 1024, 80), torch.bfloat16, 0, None, "sm90"),   # serving L1
+    ((2, 8, 4096, 40), torch.float16, 0, None, "sm90"),
+    ((1, 2, 77, 64), torch.bfloat16, 0, None, "sm90"),
+    ((1, 2, 77, 128), torch.float16, 0, None, "sm90"),
+    ((1, 2, 77, 36), torch.bfloat16, 0, None, "mma"),      # d % 8 != 0
+    ((1, 2, 77, 100), torch.float16, 0, None, "mma"),
+    ((1, 2, 77, 40), torch.bfloat16, 1, None, "mma"),      # q off 16 bytes
+    ((1, 2, 77, 40), torch.bfloat16, 8, None, "sm90"),     # 16 bytes in
+    ((1, 2, 77, 40), torch.bfloat16, 0, -0.5, "mma"),      # negative scale
+    ((8, 8, 4096, 40), torch.float32, 0, None, "f32"),
+    ((1, 2, 77, 36), torch.float32, 0, None, "f32"),
+])
+def test_forward_route(shape, dtype, offset, scale, route):
+    """The kernel K1 and K2 launch for a CUDA call, decided from dtype, head
+    dim, alignment and scale alone (the CPU tensors here stand for them)."""
+    q, k, v = _route_inputs(shape, dtype, offset=offset)
+    assert q.is_contiguous()
+    assert port_flash.forward_route(q, k, v, scale) == route
+
+
+@pytest.mark.parametrize("d,depth", [(8, 48), (40, 48), (48, 48), (56, 64),
+                                     (64, 64), (80, 80), (96, 128),
+                                     (128, 128)])
+def test_sm90_padded_depth(d, depth):
+    assert port_flash.sm90_padded_depth(d) == depth
+
+
+def test_sm90_padded_depth_refuses_other_head_dims():
+    for d in (36, 100, 136, 0):
+        with pytest.raises(ValueError):
+            port_flash.sm90_padded_depth(d)
+
+
+def test_sm90_library_build_and_symbols():
+    """The sm90 kernel is its own library (its nvcc runs beside the others),
+    built for sm_90a with the ptxas report on, a wgmma kernel fed by TMA,
+    with the C signatures of the mma kernel's entry points."""
+    assert build.LIBRARIES["flash_attention_sm90"] == (
+        "flash_attention_sm90.cu",)
+    src = build.CSRC_DIR / "flash_attention_sm90.cu"
+    cmd = build.nvcc_command("nvcc", [src], build.BUILD_DIR / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("-Xptxas") + 1] == "-v"
+    text = src.read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "ex2.approx.ftz.f32",
+                   'extern "C" int cid_flash_attention_forward_sm90',
+                   'extern "C" int cid_flash_attention_forward_lse_sm90'):
+        assert needle in text, needle
+    sig = port_flash._SIGNATURES
+    for new, old in (("cid_flash_attention_forward_sm90",
+                      "cid_flash_attention_forward"),
+                     ("cid_flash_attention_forward_lse_sm90",
+                      "cid_flash_attention_forward_lse")):
+        assert sig[new][0] == "flash_attention_sm90"
+        assert sig[new][1] == sig[old][1]
+    assert port_flash._ROUTE_SYMBOLS["sm90"] == (
+        "cid_flash_attention_forward_sm90",
+        "cid_flash_attention_forward_lse_sm90")
+
+
+def test_ptxas_report_parse():
+    text = (
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 112 registers, used 1 barriers, 1024 bytes "
+        "smem, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Used 32 registers, 360 bytes cmem[0]\n")
+    assert build.ptxas_report(text) == [
+        dict(function="_Z3fooPf", registers=112, shared_bytes=1024,
+             stack_bytes=8, spill_stores=4, spill_loads=4),
+        dict(function="_Z3barv", registers=32, shared_bytes=0,
+             stack_bytes=0, spill_stores=0, spill_loads=0)]
+
+
+def test_reset_launches_splits_by_route():
+    fwd = port_flash.flash_attention_fwd
+    saved = (fwd.launches, dict(fwd.launches_by_route))
+    try:
+        fwd.launches, fwd.launches_by_route["mma"] = 3, 3
+        port_flash.reset_launches(fwd)
+        assert fwd.launches == 0
+        assert fwd.launches_by_route == {"sm90": 0, "mma": 0, "f32": 0}
+    finally:
+        fwd.launches, fwd.launches_by_route = saved[0], saved[1]

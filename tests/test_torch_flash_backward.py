@@ -178,6 +178,6 @@ def test_backward_source_and_libraries():
         assert port_flash._SIGNATURES[symbol][0] == "flash_attention_bwd"
     assert "cid_flash_attention_forward_lse" in (
         build.CSRC_DIR / "flash_attention.cu").read_text()
-    assert set(build.LIBRARIES) == {"flash_attention", "flash_attention_bwd",
-                                    "fused_bn_act"}
+    assert set(build.LIBRARIES) == {"flash_attention", "flash_attention_sm90",
+                                    "flash_attention_bwd", "fused_bn_act"}
     assert "atomic" not in text.split("#include")[1]   # deterministic sums
