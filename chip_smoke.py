@@ -14,12 +14,14 @@ Phases, each printing its result; any failure exits non-zero:
      each output (each limit with a control: the plain version with one key
      or query tile dropped must read above it), and time kernel, plain
      version and the library call beside the kernel's bound: K1 at the
-     serving shapes, K2, K3 and K4 at the training shapes. K1 and K2 are
-     checked on each of their routes (sm90 for bf16/fp16 at the models'
-     head dims, in fp16 too and at ragged Sq, Sk under one tile, head dims
-     64 and 128 and one batch*head; mma at head dim 36; f32), each call
-     asserting the route it launched on; at the main shapes the mma.sync
-     kernel they replaced is timed beside them;
+     serving shapes, K2 and K3 + K4 (one fused backward) at the training
+     shapes. K1, K2 and K3 + K4 are checked on each of their routes (sm90
+     for bf16/fp16 at the models' head dims, in fp16 too and at ragged Sq,
+     Sk under one tile, head dims 64 and 128 and one batch*head; mma at
+     head dim 36; f32), each call asserting the route it launched on; at
+     the main shapes the mma.sync kernels they replaced are timed beside
+     them, and the fused backward's dq (summed by atomic adds) is read
+     twice for its run-to-run difference;
   4. serving: a full-width SD1.5 ConsistentID bundle (bf16, LoRA rank 128,
      4 IP tokens, ViT-H, CLIP-L, full VAE; random weights from a seed) runs
      generate() at batch 4, 50 DDIM steps, 512 px; checks the output and
@@ -30,11 +32,13 @@ Phases, each printing its result; any failure exits non-zero:
      and 5 timed AdamW steps of the adapter objective (batch 2, 512 px,
      synthetic batch); checks finite losses, a nonzero first gradient on
      every trainable leaf, moved trainable and bit-identical frozen
-     parameters, and 10 launches each of K2 (on the sm90 route), K3 and K4
-     (and none of K1, K5, K6) per step; one step under torch.profiler;
+     parameters, and 10 launches each of K2 and K3 + K4, all on the sm90
+     route (none of K1, K5, K6, nor of the mma.sync K3/K4) per step; one
+     step under torch.profiler;
   7. training path checks: one full-width UNet forward and backward through
-     K2-K4, each of its 10 calls held against the plain versions on its own
-     inputs (K3 and K4 at their own precision) and so are the LoRA leaves
+     K2 and K3 + K4, each of its 10 calls held against the plain versions
+     on its own inputs (K3 + K4 at its own precision) and so are the LoRA
+     leaves
      each call feeds, and the trainable gradients against a second pass
      through the plain versions; the tiny fp32 bundle's loss and gradients
      on the card against the CPU;
@@ -83,7 +87,7 @@ FP32_FLOPS = 67e12
 SFU_PER_S = 3.9e12
 
 # bound of the training UNet path check on the self-attention LoRA leaves
-# K3 and K4 feed (relative L2 of each leaf's gradient through the kernels'
+# K3 + K4 feeds (relative L2 of each leaf's gradient through the kernel's
 # dq, dk, dv against that through the same-precision plain backward's):
 # just above the 1.9e-3 read on an H100, below the controls' 0.06 (PERF.md)
 UNET_LEAF_REL_L2 = 5e-3
@@ -172,9 +176,10 @@ def cuda_ms(fn, iters: int, queued: bool = True) -> float:
 def attention_bound(b, h, sq, sk, d, itemsize, tensor_cores, kind="fwd"):
     """Least time (ms) for one flash-attention kernel, what bounds it
     ("bytes" or "operations") and the limiter (bytes, flops or exp).
-    Bytes: each input read once, each output written once. FLOPs: 4, 6 or 8
-    x b*h*sq*sk*d (fwd: S and PV; dq: S, dP, dQ; dkv: S, dV, dP, dK). One exp
-    per score in each kernel."""
+    Bytes: each input read once, each output written once. FLOPs: 4, 6, 8
+    or 10 x b*h*sq*sk*d (fwd: S and PV; dq: S, dP, dQ; dkv: S, dV, dP, dK;
+    bwd, K3 + K4 fused: S, dP, dV, dK, dQ). One exp per score in each
+    kernel."""
     bh = b * h
     qo = bh * sq * d * itemsize         # one (sq, d) tensor
     kv = bh * sk * d * itemsize         # one (sk, d) tensor
@@ -184,6 +189,7 @@ def attention_bound(b, h, sq, sk, d, itemsize, tensor_cores, kind="fwd"):
         "fwd": (2 * qo + 2 * kv + stat, 4),             # -> o, lse
         "dq": (3 * qo + 2 * kv + 2 * stat, 6),          # q, dO, k, v, lse,
         "dkv": (2 * qo + 4 * kv + 2 * stat, 8),         # delta -> dq | dk, dv
+        "bwd": (3 * qo + 4 * kv + 2 * stat, 10),        # -> dq, dk, dv
     }[kind]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops = float(mult) * bh * sq * sk * d
@@ -363,51 +369,114 @@ def kernel_resources():
 
 
 def launch_counters():
-    """The kernels' wrappers, whose .launches count their launches: K1-K4."""
+    """The kernels' wrappers, whose .launches count their launches: K1, K2
+    and K3 + K4."""
     from consistentid_torch.ops import flash_attention as fa
     return [fa.flash_attention_fwd, fa.flash_attention_lse,
-            fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
+            fa.flash_attention_bwd]
 
 
 @contextmanager
 def plain_flash():
-    """Swap the plain versions in for K2, K3 and K4 inside the autograd
+    """Swap the plain versions in for K2 and K3 + K4 inside the autograd
     Function (on the card), so a run through it launches none of them."""
     from consistentid_torch.ops import flash_attention as fa
-    saved = (fa.flash_attention_lse, fa.flash_attention_bwd_dq,
-             fa.flash_attention_bwd_dkv)
+    saved = (fa.flash_attention_lse, fa.flash_attention_bwd)
 
-    def dq(q, k, v, do, lse, delta, scale=None):
-        return fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
-                                            scale)[0].to(q.dtype)
-
-    def dkv(q, k, v, do, lse, delta, scale=None):
-        _, dk, dv = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
-                                                 scale)
-        return dk.to(k.dtype), dv.to(v.dtype)
+    def bwd(q, k, v, do, lse, delta, scale=None):
+        dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                  scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
     fa.flash_attention_lse = fa.flash_attention_lse_plain
-    fa.flash_attention_bwd_dq = dq
-    fa.flash_attention_bwd_dkv = dkv
+    fa.flash_attention_bwd = bwd
     try:
         yield
     finally:
-        (fa.flash_attention_lse, fa.flash_attention_bwd_dq,
-         fa.flash_attention_bwd_dkv) = saved
+        fa.flash_attention_lse, fa.flash_attention_bwd = saved
+
+
+def pair_call(q, k, v, do, lse, delta):
+    """A call of K3's and K4's mma.sync kernels (dq, then dk and dv) on
+    bf16/fp16 inputs, through their C entry points and not the wrapper, so
+    no launch is counted: the earlier design, timed beside the fused sm90
+    kernel in one run."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    b, h, sq, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    args = (b * h, sq, k.shape[2], d, 1.0 / math.sqrt(d),
+            fa._DTYPE_CODES[q.dtype])
+
+    def call():
+        fa._launch("cid_flash_attention_backward_dq", q.device, q, k, v, do,
+                   lse, delta, dq, *args)
+        fa._launch("cid_flash_attention_backward_dkv", q.device, q, k, v, do,
+                   lse, delta, dk, dv, *args)
+    return call
+
+
+def check_backward(name, q, k, v, do, lse, delta, tol):
+    """K3 + K4 on one input, through its wrapper (one launch, on the route
+    `expected_route` gives): dq, dk and dv against the plain backward in
+    fp32 (limit `tol`) and, for 16-bit inputs, at the kernel's own precision
+    (P and dS rounded to the input type; KERNEL_REL_L2_SAME_PRECISION), each
+    with its dropped-tile control: the last key tile for dq, the last query
+    tile for dk and dv. Returns the outputs and the readings."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.testing import (KERNEL_REL_L2_SAME_PRECISION,
+                                            drop_last_tile, rel_l2)
+    route = expected_route(q.dtype, q.shape[3])
+    grads = counted_call(fa.flash_attention_bwd,
+                         lambda: fa.flash_attention_bwd(q, k, v, do, lse,
+                                                        delta), route)
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+    kc, qc = drop_last_tile(k.shape[2]), drop_last_tile(q.shape[2])
+    ctl = (fa.flash_attention_bwd_plain(q, k[:, :, :kc], v[:, :, :kc], do,
+                                        lse, delta)[0],
+           # all query rows dropped (Sq under one tile): zero dk, dv
+           *(fa.flash_attention_bwd_plain(q[:, :, :qc], k, v, do[:, :, :qc],
+                                          lse[:, :, :qc], delta[:, :, :qc])[1:]
+             if qc else (torch.zeros_like(k, dtype=torch.float32),) * 2))
+    same = (fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                         round_to=q.dtype)
+            if q.dtype != torch.float32 else (None,) * 3)
+    rels, ctls, errs, sames = [], [], [], []
+    for oname, got, want, c, s in zip(("dq", "dk", "dv"), grads, ref, ctl,
+                                      same):
+        if got.dtype != q.dtype or got.shape != want.shape:
+            raise AssertionError(f"K3 + K4 {name} {oname}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        rel, control = rel_l2(got, want), rel_l2(c, want)
+        check(f"K3 + K4 {name} {oname} ({route})", rel, control, tol)
+        rels.append(rel)
+        ctls.append(control)
+        errs.append((got.float() - want.float()).abs().max().item())
+        if s is not None:
+            s_ref = s.to(q.dtype)
+            s_rel = rel_l2(got, s_ref)
+            check(f"K3 + K4 {name} {oname} at the kernel's precision", s_rel,
+                  rel_l2(c, s_ref), KERNEL_REL_L2_SAME_PRECISION)
+            sames.append(s_rel)
+    return grads, dict(route=route, rel_l2=max(rels), control_rel_l2=min(ctls),
+                       max_abs_err=max(errs),
+                       same_precision_rel_l2=max(sames, default=None))
 
 
 def train_kernel_phase():
-    """K2, K3 and K4 against their plain versions at the training shapes
+    """K2 and K3 + K4 against their plain versions at the training shapes
     (batch 2: level 0 (2, 8, 4096, 40), level 1 (2, 8, 1024, 80), bf16), at
     a ragged bf16 shape and at two ragged fp32 shapes; times of kernel,
-    plain version and SDPA (K2 at the training shapes also its mma.sync
-    kernel's); then K2 alone on the routes' edge cases (`k2_route_cases`)."""
+    plain version and SDPA, at the training shapes also of the mma.sync
+    kernels they replaced (K2's; K3's and K4's pair); dq's run-to-run
+    difference at level 0; then both alone on the routes' edge cases
+    (`k2_route_cases`, `bwd_route_cases`)."""
     import torch
     import torch.nn.functional as F
     from consistentid_torch.ops import flash_attention as fa
     from consistentid_torch.testing import (KERNEL_REL_L2_16BIT,
                                             KERNEL_REL_L2_FP32,
-                                            KERNEL_REL_L2_SAME_PRECISION,
                                             drop_last_tile, rel_l2)
 
     gen = torch.Generator("cuda").manual_seed(1)
@@ -420,67 +489,52 @@ def train_kernel_phase():
         ("ragged_fp32_d40", (2, 3, 1000, 40), 1037, torch.float32, 10),
         ("ragged_fp32_d80", (1, 4, 333, 80), 517, torch.float32, 10),
     ]
-    rows = {"K2": [], "K3": [], "K4": []}
+    rows = {"K2": [], "K3+K4": []}
     for name, (b, h, sq, d), sk, dtype, iters in cases:
         shape = (b, h, sq, d)
-        bf16 = dtype != torch.float32
-        tol = KERNEL_REL_L2_16BIT if bf16 else KERNEL_REL_L2_FP32
+        tc = dtype != torch.float32
+        tol = KERNEL_REL_L2_16BIT if tc else KERNEL_REL_L2_FP32
         q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                        for s in (shape, (b, h, sk, d), (b, h, sk, d), shape))
         route = expected_route(dtype, d)
         out, lse = counted_call(fa.flash_attention_lse,
                                 lambda: fa.flash_attention_lse(q, k, v), route)
         ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v)
-        delta = (do.float() * ref_out.float()).sum(-1)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_bwd_plain(q, k, v, do, ref_lse, delta)
         lse_err = (lse - ref_lse).abs().max().item()
         if not lse_err <= 1e-4:
             raise AssertionError(f"K2 {name}: lse off by {lse_err}")
-
-        # controls: the last key tile (K2, K3) or query tile (K4) dropped
-        kc, qc = drop_last_tile(sk), drop_last_tile(sq)
+        kc = drop_last_tile(sk)
         ctl_out = fa.flash_attention_lse_plain(q, k[:, :, :kc],
                                                v[:, :, :kc])[0]
-        ctl_dq = fa.flash_attention_bwd_plain(q, k[:, :, :kc], v[:, :, :kc],
-                                              do, ref_lse, delta)[0]
-        _, ctl_dk, ctl_dv = fa.flash_attention_bwd_plain(
-            q[:, :, :qc], k, v, do[:, :, :qc], ref_lse[:, :, :qc],
-            delta[:, :, :qc])
-        outputs = {"K2": [("o", out, ref_out, ctl_out)],
-                   "K3": [("dq", dq, ref[0], ctl_dq)],
-                   "K4": [("dk", dk, ref[1], ctl_dk), ("dv", dv, ref[2],
-                                                       ctl_dv)]}
-        # K3 and K4 at their own precision too: P and dS rounded to bf16
-        same = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
-            q, k, v, do, ref_lse, delta, round_to=dtype))) if bf16 else {}
-        readings = {}
-        for kname, outs in outputs.items():
-            rels, ctls, errs, sames = [], [], [], []
-            for oname, got, want, ctl in outs:
-                rel, control = rel_l2(got, want), rel_l2(ctl, want)
-                check(f"{kname} {name} {oname}", rel, control, tol)
-                rels.append(rel)
-                ctls.append(control)
-                errs.append((got.float() - want.float()).abs().max().item())
-                if oname in same:
-                    s_ref = same[oname].to(dtype)
-                    s_rel = rel_l2(got, s_ref)
-                    check(f"{kname} {name} {oname} at the kernel's precision",
-                          s_rel, rel_l2(ctl, s_ref),
-                          KERNEL_REL_L2_SAME_PRECISION)
-                    sames.append(s_rel)
-            readings[kname] = dict(rel_l2=max(rels), control_rel_l2=min(ctls),
-                                   max_abs_err=max(errs),
-                                   same_precision_rel_l2=max(sames, default=None))
-        readings["K2"]["route"] = route
-        readings["K2"]["mma_ms"] = (
-            cuda_ms(mma_call(q, k, v, lse=True), iters)
-            if route == "sm90" and name.startswith("level") else None)
+        k2_rel = rel_l2(out, ref_out)
+        k2_ctl = rel_l2(ctl_out, ref_out)
+        check(f"K2 {name} o", k2_rel, k2_ctl, tol)
+        readings = {"K2": dict(
+            route=route, rel_l2=k2_rel, control_rel_l2=k2_ctl,
+            max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
+            same_precision_rel_l2=None)}
+        delta = (do.float() * ref_out.float()).sum(-1)
+        grads, readings["K3+K4"] = check_backward(name, q, k, v, do, ref_lse,
+                                                  delta, tol)
+        main = route == "sm90" and name.startswith("level")
+        readings["K2"]["mma_ms"] = (cuda_ms(mma_call(q, k, v, lse=True), iters)
+                                    if main else None)
+        readings["K3+K4"]["mma_ms"] = (
+            cuda_ms(pair_call(q, k, v, do, ref_lse, delta), iters) if main
+            else None)
+        if name == "level0":
+            # dq is summed by bulk adds in no fixed order: its last bits
+            # may move from call to call (dk's and dv's cannot)
+            again = fa.flash_attention_bwd(q, k, v, do, ref_lse, delta)
+            torch.cuda.synchronize()
+            readings["K3+K4"].update(
+                dq_run_to_run_rel_l2=rel_l2(again[0], grads[0]),
+                dk_dv_run_to_run_equal=bool(torch.equal(again[1], grads[1])
+                                            and torch.equal(again[2],
+                                                            grads[2])))
+            del again
+        del grads
 
-        tc = dtype != torch.float32
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*leaves)
         times = {
@@ -488,22 +542,16 @@ def train_kernel_phase():
                    cuda_ms(lambda: fa.flash_attention_lse_plain(q, k, v), 3),
                    cuda_ms(lambda: F.scaled_dot_product_attention(*leaves),
                            iters)),
-            "K3": (cuda_ms(lambda: fa.flash_attention_bwd_dq(
-                       q, k, v, do, ref_lse, delta), iters),
-                   cuda_ms(lambda: fa.flash_attention_bwd_plain(
-                       q, k, v, do, ref_lse, delta), 3), None),
-            "K4": (cuda_ms(lambda: fa.flash_attention_bwd_dkv(
-                       q, k, v, do, ref_lse, delta), iters),
-                   cuda_ms(lambda: fa.flash_attention_bwd_plain(
-                       q, k, v, do, ref_lse, delta), 3), None),
+            "K3+K4": (cuda_ms(lambda: fa.flash_attention_bwd(
+                          q, k, v, do, ref_lse, delta), iters),
+                      cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                          q, k, v, do, ref_lse, delta), 3),
+                      # SDPA's backward alone (its dq, dk, dv together)
+                      cuda_ms(lambda: torch.autograd.grad(
+                          sdpa_out, leaves, do, retain_graph=True), iters)),
         }
-        # SDPA's backward alone (its dq, dk, dv together): K3 + K4's yardstick
-        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-            sdpa_out, leaves, do, retain_graph=True), iters)
-        for kname, kind in (("K2", "fwd"), ("K3", "dq"), ("K4", "dkv")):
+        for kname, kind in (("K2", "fwd"), ("K3+K4", "bwd")):
             ms, plain_ms, lib_ms = times[kname]
-            if lib_ms is None:
-                lib_ms = sdpa_bwd
             bound, by, limiter = attention_bound(
                 b, h, sq, sk, d, q.element_size(), tc, kind)
             r = readings[kname]
@@ -519,16 +567,20 @@ def train_kernel_phase():
             same_txt = ("" if r["same_precision_rel_l2"] is None else
                         f", at its own precision {r['same_precision_rel_l2']:.3g}")
             mma_txt = ("" if r.get("mma_ms") is None else
-                       f" (mma.sync kernel {r['mma_ms']:.4f} ms)")
-            log(f"{kname} {name} {b}x{h}x{sq}x{d} sk={sk} {row['dtype']}"
-                f"{' ' + r['route'] if 'route' in r else ''}: "
-                f"rel_l2 {r['rel_l2']:.3g} (limit {tol:g}; control "
-                f"{r['control_rel_l2']:.3g}{same_txt}), max_abs_err "
-                f"{r['max_abs_err']:.3g}, kernel {ms:.4f} ms{mma_txt}, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({limiter})")
+                       f" (mma.sync {'kernel' if kname == 'K2' else 'pair'} "
+                       f"{r['mma_ms']:.4f} ms)")
+            det_txt = ("" if "dq_run_to_run_rel_l2" not in r else
+                       f", dq run to run {r['dq_run_to_run_rel_l2']:.3g} "
+                       f"(dk, dv equal: {r['dk_dv_run_to_run_equal']})")
+            log(f"{kname} {name} {b}x{h}x{sq}x{d} sk={sk} {row['dtype']} "
+                f"{r['route']}: rel_l2 {r['rel_l2']:.3g} (limit {tol:g}; "
+                f"control {r['control_rel_l2']:.3g}{same_txt}), max_abs_err "
+                f"{r['max_abs_err']:.3g}{det_txt}, kernel {ms:.4f} ms"
+                f"{mma_txt}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({limiter})")
         del leaves, sdpa_out
     rows["K2"] += k2_route_cases()
+    rows["K3+K4"] += bwd_route_cases()
     return rows
 
 
@@ -579,6 +631,49 @@ def k2_route_cases():
         log(f"K2 {name} {b}x{h}x{sq}x{d} sk={sk} {rows[-1]['dtype']} "
             f"{route}: rel_l2 {rel:.3g} (limit {KERNEL_REL_L2_16BIT:g}; "
             f"control {control:.3g}), lse off by {lse_err:.3g}")
+    return rows
+
+
+def bwd_route_cases():
+    """K3 + K4 alone, held and not timed, on what the training shapes leave
+    out: fp16 at both levels, Sq and Sk ragged at head dims 80, 64 and 128,
+    Sq and Sk under one tile, Sq much longer than Sk and the reverse, one
+    batch*head, and a head dim (36) that must take the mma route. dq, dk
+    and dv by relative L2 against the fp32 and the same-precision plain
+    backward, each with its dropped-tile control."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.testing import KERNEL_REL_L2_16BIT
+
+    gen = torch.Generator("cuda").manual_seed(9)
+    cases = [
+        ("level0_fp16", (2, 8, 4096, 40), 4096, torch.float16),
+        ("level1_fp16", (2, 8, 1024, 80), 1024, torch.float16),
+        ("ragged_fp16_d80", (2, 3, 1000, 80), 1037, torch.float16),
+        ("ragged_bf16_d64", (2, 4, 777, 64), 900, torch.bfloat16),
+        ("ragged_fp16_d128", (2, 2, 500, 128), 333, torch.float16),
+        ("under_one_tile_bf16", (1, 2, 50, 40), 30, torch.bfloat16),
+        ("short_keys_bf16", (2, 2, 300, 40), 50, torch.bfloat16),
+        ("short_queries_fp16", (2, 2, 40, 80), 700, torch.float16),
+        ("one_head_bf16", (1, 1, 4096, 40), 4096, torch.bfloat16),
+        ("mma_fp16_d36", (1, 2, 77, 36), 99, torch.float16),
+    ]
+    rows = []
+    for name, (b, h, sq, d), sk, dtype in cases:
+        q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                       for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d),
+                                 (b, h, sq, d)))
+        out, lse = fa.flash_attention_lse_plain(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        _, r = check_backward(name, q, k, v, do, lse, delta,
+                              KERNEL_REL_L2_16BIT)
+        rows.append(dict(case=name, shape=[b, h, sq, d], sk=sk,
+                         dtype=str(dtype).replace("torch.", ""), **r,
+                         tolerance=KERNEL_REL_L2_16BIT))
+        log(f"K3+K4 {name} {b}x{h}x{sq}x{d} sk={sk} {rows[-1]['dtype']} "
+            f"{r['route']}: rel_l2 {r['rel_l2']:.3g} (limit "
+            f"{KERNEL_REL_L2_16BIT:g}; control {r['control_rel_l2']:.3g}), "
+            f"at its own precision {r['same_precision_rel_l2']:.3g}")
     return rows
 
 
@@ -647,8 +742,8 @@ def main_path():
     if launches != 500 or by_route["sm90"] != 500 or any(others):
         raise AssertionError(f"K1 launched {launches} times ({by_route}), "
                              "expected 500 (10 per UNet call x 50 steps), "
-                             f"all on the sm90 route; K2-K6 {others}, "
-                             "expected none")
+                             f"all on the sm90 route; K2, K3 + K4, K5, K6 "
+                             f"{others}, expected none")
     stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
     log(f"main path: generate batch 4, 50 DDIM steps, 512 px: "
         f"{seconds:.3f} s, {4 / seconds * 60:.2f} images/min, "
@@ -657,7 +752,7 @@ def main_path():
         f"{float(images.float().std()):.4f}")
     return bundle, dict(seconds=seconds, images_per_min=4 / seconds * 60,
                         stage_ms=stages, peak_gib=peak_gib, launches=launches,
-                        launches_by_route=by_route, bn_launches=others[3:])
+                        launches_by_route=by_route, bn_launches=others[2:])
 
 
 def unet_path_check(bundle):
@@ -792,17 +887,21 @@ def training_path(bundle):
     seconds = time.perf_counter() - t0
     launches = [w.launches for w in counters]
     k2_routes = dict(fa.flash_attention_lse.launches_by_route)
+    bwd_routes = dict(fa.flash_attention_bwd.launches_by_route)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses += [float(m["loss"]) for m in step_metrics]
     s_per_step = seconds / n_steps
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if launches != [0] + [10 * n_steps] * 3 + [0, 0] or \
-            k2_routes["sm90"] != 10 * n_steps:
-        raise AssertionError(f"launches K1-K6 over {n_steps} steps: "
-                             f"{launches} (K2 {k2_routes}), expected 10 per "
-                             "step each of K2-K4, K2's all on the sm90 "
-                             "route, and none of K1, K5, K6")
+    if launches != [0] + [10 * n_steps] * 2 + [0, 0] or \
+            k2_routes["sm90"] != 10 * n_steps or \
+            bwd_routes != {"sm90": 10 * n_steps, "mma": 0, "f32": 0}:
+        raise AssertionError(f"launches K1, K2, K3 + K4, K5, K6 over "
+                             f"{n_steps} steps: {launches} (K2 {k2_routes}, "
+                             f"K3 + K4 {bwd_routes}), expected 10 per step "
+                             "each of K2 and K3 + K4, all on the sm90 route "
+                             "(no launch of the mma.sync K3/K4), and none "
+                             "of K1, K5, K6")
     still = [n for n, p in state.trainable.items()
              if torch.equal(p, train0[n])]
     changed = [n for n, p in state.frozen.items()
@@ -815,12 +914,14 @@ def training_path(bundle):
     log(f"training path: batch 2, 512 px, {n_steps} steps after a "
         f"{warm_s:.2f} s warm-up: {s_per_step:.4f} s/step, "
         f"{2 / s_per_step:.3f} examples/s, peak memory {peak_gib:.2f} GiB, "
-        f"{n_train / 1e6:.1f} M trainable fp32 params, launches K1-K6 "
-        f"{launches} (K2 {k2_routes}), losses "
+        f"{n_train / 1e6:.1f} M trainable fp32 params, launches K1, K2, "
+        f"K3 + K4, K5, K6 {launches} (K2 {k2_routes}, K3 + K4 "
+        f"{bwd_routes}), losses "
         f"{[round(x, 5) for x in losses]}")
     return state, dict(s_per_step=s_per_step, examples_per_s=2 / s_per_step,
                        warmup_s=warm_s, peak_gib=peak_gib, losses=losses,
                        launches=launches, k2_launches_by_route=k2_routes,
+                       bwd_launches_by_route=bwd_routes,
                        trainable_params=n_train, steps=n_steps)
 
 
@@ -889,11 +990,10 @@ class Recorder:
 
 @contextmanager
 def recorded_flash():
-    """Record every call the autograd Function makes to K2, K3 and K4, in
+    """Record every call the autograd Function makes to K2 and K3 + K4, in
     call order: yields {wrapper name: [(arguments, result), ...]}."""
     from consistentid_torch.ops import flash_attention as fa
-    names = ("flash_attention_lse", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
+    names = ("flash_attention_lse", "flash_attention_bwd")
     recorders = {n: Recorder(getattr(fa, n)) for n in names}
     for n, r in recorders.items():
         setattr(fa, n, r)
@@ -918,15 +1018,12 @@ def check_flash_calls(calls, starts, grads, trainable):
 
     # the backward calls, by the forward's lse they were given
     bwd = {args[4].data_ptr(): (args, res) for args, res in
-           calls["flash_attention_bwd_dq"]}
-    dkv = {args[4].data_ptr(): res for args, res in
-           calls["flash_attention_bwd_dkv"]}
+           calls["flash_attention_bwd"]}
     call_rows, held = [], {}
     for i, ((q, k, v, scale), (o, lse)) in enumerate(
             calls["flash_attention_lse"]):
         owner = [n for c, n in starts if c <= i][-1]
-        (_, _, _, do, _, delta, _), dq = bwd[lse.data_ptr()]
-        dk, dv = dkv[lse.data_ptr()]
+        (_, _, _, do, _, delta, _), (dq, dk, dv) = bwd[lse.data_ptr()]
         qd, kd, vd = q.detach(), k.detach(), v.detach()
         kc, qc = drop_last_tile(k.shape[2]), drop_last_tile(q.shape[2])
 
@@ -984,9 +1081,9 @@ def check_flash_calls(calls, starts, grads, trainable):
 
 def train_unet_path_check(bundle, state):
     """One full-width UNet forward and backward (batch 2, bf16, 64x64
-    latents) through K2-K4, every kernel call kept; then
-      - each call's K2 output against its plain version, and its K3 and K4
-        outputs against the plain backward at the kernels' precision (P and
+    latents) through K2 and K3 + K4, every kernel call kept; then
+      - each call's K2 output against its plain version, and its K3 + K4
+        outputs against the plain backward at the kernel's precision (P and
         dS rounded to bf16), on the call's own inputs;
       - per leaf, the gradients of the q/k/v LoRA leaves of each
         self-attention that ran the kernels (their only way to the loss is
@@ -1072,15 +1169,16 @@ def train_unet_path_check(bundle, state):
     bad = ([n for n, (rel, control, _) in held.items()
             if not rel <= UNET_LEAF_REL_L2 < control]
            + [n for n, rel in other.items() if not rel <= 0.05])
-    ok = (n_kernel == [0, 10, 10, 10] and n_plain == [0, 0, 0, 0]
+    ok = (n_kernel == [0, 10, 10] and n_plain == [0, 0, 0]
           and len(call_rows) == 10 and len(held) == 60
           and math.isfinite(overall) and overall <= 0.02 and not bad)
     worst_call = max(max(r["rel_l2"].values()) for r in call_rows)
     log(f"training UNet path check (bf16, batch 2, 64x64 latents, "
-        f"{len(params)} trainable leaves): launches K1-K4 kernel route "
+        f"{len(params)} trainable leaves): launches K1, K2, K3 + K4 "
+        f"kernel route "
         f"{n_kernel}, plain route {n_plain}; per call (10): K2 o worst "
         f"{max(r['o_rel_l2'] for r in call_rows):.4g} (limit "
-        f"{KERNEL_REL_L2_16BIT:g}), K3/K4 vs same precision worst "
+        f"{KERNEL_REL_L2_16BIT:g}), K3 + K4 vs same precision worst "
         f"{worst_call:.4g} (limit {KERNEL_REL_L2_SAME_PRECISION:g}), "
         f"controls from "
         f"{min(r['control_rel_l2'] for r in call_rows):.4g}; held leaves "
@@ -1101,7 +1199,8 @@ def train_unet_path_check(bundle, state):
 def tiny_train_check():
     """The tiny fp32 bundle's loss and trainable gradients (64 px, batch 2:
     the level-0 self-attention is 1024 x 1024, 3 Function calls) on the card
-    (K2-K4 fp32 paths) against the same bundle on the CPU (plain versions),
+    (K2's and K3 + K4's fp32 paths) against the same bundle on the CPU
+    (plain versions),
     with TF32 off on the card and the same draws."""
     import torch
     from consistentid_torch.core import SchedulerConfig, TrainConfig
@@ -1140,12 +1239,12 @@ def tiny_train_check():
     # fp32 on both devices, other summation orders through the VAE, ViT,
     # CLIP, adapters and UNet: the CPU parity tests' bounds, loss 1e-5
     # relative, each gradient leaf 1e-4 of its largest element
-    ok = (cpu_n == [0, 0, 0, 0] and gpu_n == [0, 3, 3, 3]
+    ok = (cpu_n == [0, 0, 0] and gpu_n == [0, 3, 3]
           and loss_rel <= 1e-5 and worst <= 1e-4)
     log(f"tiny fp32 train step, card vs CPU (64 px, batch 2): loss "
         f"{gpu_loss:.7g} vs {cpu_loss:.7g} (relative {loss_rel:.3g}, tol "
         f"1e-5), worst gradient leaf {worst:.3g} of its max (tol 1e-4), "
-        f"launches K1-K4 card {gpu_n} / cpu {cpu_n}")
+        f"launches K1, K2, K3 + K4 card {gpu_n} / cpu {cpu_n}")
     if not ok:
         raise AssertionError("tiny training card-vs-CPU check failed")
     return dict(loss_rel=loss_rel, worst_grad_rel=worst, launches=gpu_n)
@@ -1531,8 +1630,9 @@ def photo_generate(bundle, parser, embedder, checker):
         raise AssertionError(f"output {out.shape} {out.dtype}")
     if flags is None or np.asarray(flags).shape != (4,):
         raise AssertionError(f"nsfw flags {flags}")
-    if launches != [500, 0, 0, 0, 0, 0] or by_route["sm90"] != 500:
-        raise AssertionError(f"launches K1-K6 {launches} (K1 {by_route}), "
+    if launches != [500, 0, 0, 0, 0] or by_route["sm90"] != 500:
+        raise AssertionError(f"launches K1, K2, K3 + K4, K5, K6 {launches} "
+                             f"(K1 {by_route}), "
                              "expected K1 500, all on the sm90 route, and "
                              "no other")
     stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
@@ -1540,7 +1640,8 @@ def photo_generate(bundle, parser, embedder, checker):
         f" embedder and safety checker): {seconds:.3f} s, "
         f"{4 / seconds * 60:.2f} images/min, stages ms {stages}; safety "
         f"checker alone (4 images) {checker_ms:.2f} ms; flags "
-        f"{np.asarray(flags).tolist()}; launches K1-K6 {launches} (K1 "
+        f"{np.asarray(flags).tolist()}; launches K1, K2, K3 + K4, K5, K6 "
+        f"{launches} (K1 "
         f"{by_route}); output mean {float(out.mean()):.2f}")
     return dict(seconds=seconds, images_per_min=4 / seconds * 60,
                 stage_ms=stages, checker_ms=checker_ms, launches=launches,
@@ -1607,9 +1708,9 @@ def main() -> int:
                 "shapes": rows}
 
     fwd_src = "consistentid_torch/csrc/flash_attention_sm90.cu"
-    bwd_src = "consistentid_torch/csrc/flash_attention_bwd.cu"
+    bwd_src = "consistentid_torch/csrc/flash_attention_bwd_sm90.cu"
     jax_src = "consistentid_tpu/ops/flash_attention.py"
-    k2, k3, k4 = train["launches"][1:4]
+    k2, k34 = train["launches"][1:3]
     sm90 = resources["flash_attention_sm90"]
     sm90_info = dict(
         dispatch="sm90 (wgmma + TMA); mma.sync (flash_attention.cu) for "
@@ -1627,10 +1728,23 @@ def main() -> int:
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
          "launches_by_route": train["k2_launches_by_route"]},
-        entry("flash_attention_bwd_dq (K3)", bwd_src, f"{jax_src}:273", k3,
-              train_rows["K3"], "sdpa backward alone (dq, dk, dv: K3 + K4)"),
-        entry("flash_attention_bwd_dkv (K4)", bwd_src, f"{jax_src}:308", k4,
-              train_rows["K4"], "sdpa backward alone (dq, dk, dv: K3 + K4)"),
+        {**entry("flash_attention_bwd (K3 + K4, fused)", bwd_src,
+                 f"{jax_src}:273", k34, train_rows["K3+K4"],
+                 "sdpa backward alone (dq, dk, dv)"),
+         "also_replaces": f"{jax_src}:308",
+         "dispatch": "sm90 (one fused wgmma + TMA kernel, with a statistics "
+                     "set-up and a dq pass); K3's and K4's mma.sync kernels "
+                     "(flash_attention_bwd.cu) for other 16-bit shapes, "
+                     "their SIMT kernels for fp32",
+         "mma_ms": train_rows["K3+K4"][0]["mma_ms"],
+         "dq_run_to_run_rel_l2": train_rows["K3+K4"][0][
+             "dq_run_to_run_rel_l2"],
+         "launches_by_route": train["bwd_launches_by_route"],
+         "kernel_resources": [
+             k for k in resources["flash_attention_bwd_sm90"]["kernels"]
+             if "flash_bwd_sm90_kernel" in k["kernel"]],
+         "wgmma_remarks":
+             resources["flash_attention_bwd_sm90"]["wgmma_remarks"]},
     ]
     bn_src = "consistentid_torch/csrc/fused_bn_act.cu"
     bn_jax = "consistentid_tpu/ops/fused_bn_act.py"
@@ -1645,8 +1759,8 @@ def main() -> int:
               "F.batch_norm (inference) on the channels-last view, then "
               "F.leaky_relu: two calls")), bn_launches)):
         on_paths = {"generate": main["bn_launches"][i],
-                    "generate_from_photo": photo["launches"][4 + i],
-                    "train_steps": train["launches"][4 + i]}
+                    "generate_from_photo": photo["launches"][3 + i],
+                    "train_steps": train["launches"][3 + i]}
         kernels.append({**entry(label, bn_src, f"{bn_jax}:{line}", n, rows,
                                 lib),
                         "main_path_launches": on_paths, "note": note})

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES: Dict[str, Sequence[str]] = {
     "flash_attention": ("flash_attention.cu",),        # K1, K2 (mma, f32)
     "flash_attention_sm90": ("flash_attention_sm90.cu",),  # K1, K2 (sm90)
-    "flash_attention_bwd": ("flash_attention_bwd.cu",),  # K3, K4
+    "flash_attention_bwd": ("flash_attention_bwd.cu",),  # K3, K4 (mma, f32)
+    "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu",),  # K3 + K4
     "fused_bn_act": ("fused_bn_act.cu",),                # K5, K6
 }
 

@@ -3,33 +3,40 @@ versions, and the autograd Function that joins them.
 
 The kernels replace the JAX package's Pallas TPU kernels
 (consistentid_tpu/ops/flash_attention.py):
-  K1 `flash_attention_fwd`     <- `_flash_kernel`          (..._sm90.cu,
-                                                             flash_attention.cu)
-  K2 `flash_attention_lse`     <- `_flash_fwd_lse_kernel`  (..._sm90.cu,
-                                                             flash_attention.cu)
-  K3 `flash_attention_bwd_dq`  <- `_flash_bwd_dq_kernel`   (..._bwd.cu)
-  K4 `flash_attention_bwd_dkv` <- `_flash_bwd_dkv_kernel`  (..._bwd.cu)
+  K1 `flash_attention_fwd`  <- `_flash_kernel`          (..._sm90.cu,
+                                                          flash_attention.cu)
+  K2 `flash_attention_lse`  <- `_flash_fwd_lse_kernel`  (..._sm90.cu,
+                                                          flash_attention.cu)
+  K3 + K4 `flash_attention_bwd`
+                            <- `_flash_bwd_dq_kernel` and
+                               `_flash_bwd_dkv_kernel`  (..._bwd_sm90.cu,
+                                                          ..._bwd.cu)
 with the sources in csrc/.
 The source files' headers state what bounds each on an H100 and how its
 design answers.
 
-K1 and K2 have three kernels, chosen by `forward_route` from the call's
-dtype, head dim, alignment and scale, never by failure: "sm90" (wgmma fed by
-TMA, flash_attention_sm90.cu) for bf16/fp16 with head_dim a multiple of 8 up
-to 128, 16-byte aligned q, k, v and a positive scale, which is every shape
-the models produce; "mma" (mma.sync, flash_attention.cu) for any other
-16-bit call; "f32" (SIMT, flash_attention.cu) for fp32.
+Each wrapper has three kernels, chosen by `forward_route` (K1, K2) or
+`backward_route` (K3 + K4) from the call's dtype, head dim, alignment and
+scale, never by failure: "sm90" (wgmma fed by TMA) for bf16/fp16 with
+head_dim a multiple of 8 up to 128, 16-byte aligned tensors and a positive
+scale, which is every shape the models produce; "mma" (mma.sync) for any
+other 16-bit call; "f32" (SIMT) for fp32. The sm90 forward is
+flash_attention_sm90.cu; the sm90 backward, flash_attention_bwd_sm90.cu, is
+one fused kernel that computes dq, dk and dv together (dq through an fp32
+workspace that it adds into, so dq's last bits may vary from run to run).
+The mma and f32 routes run flash_attention.cu (K1, K2) and the two kernels
+of flash_attention_bwd.cu (dq; dk and dv).
 
 Every wrapper takes (B, H, S, D) tensors (lse and delta (B, H, Sq) fp32). A
 CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (`flash_attention_plain`, `flash_attention_lse_plain`,
 `flash_attention_bwd_plain`), which is also what each kernel is held against
-on the card. Each launch adds one to the wrapper's `.launches`; K1's and
-K2's wrappers split that count by route in `.launches_by_route`.
+on the card. Each call that launches adds one to the wrapper's `.launches`
+and to its route's count in `.launches_by_route`.
 
 `flash_attention` is the entry point, the counterpart of the JAX package's
 differentiable `flash_attention` (custom VJP `_flash_diff`): when autograd
-needs its gradient it runs `FlashAttentionFunction` (K2 forward, K3 and K4
+needs its gradient it runs `FlashAttentionFunction` (K2 forward, K3 + K4
 backward); otherwise it runs K1. The same holds on the CPU with the plain
 versions, so the gradient does not depend on the device.
 """
@@ -64,6 +71,9 @@ _SIGNATURES = {
     "cid_flash_attention_backward_dkv":
         ("flash_attention_bwd",
          [_P] * 8 + [_I] * 4 + [ctypes.c_float, _I, _P]),
+    "cid_flash_attention_backward_sm90":
+        ("flash_attention_bwd_sm90",
+         [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P]),
 }
 
 
@@ -166,10 +176,23 @@ def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return "mma"
 
 
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor, sm_scale: Optional[float] = None) -> str:
+    """The kernels a CUDA call of K3 + K4 launches: "sm90" (the fused
+    kernel) under forward_route's conditions with dO aligned too; "mma"
+    (K3's and K4's mma.sync kernels) for any other 16-bit call; "f32" (their
+    SIMT kernels) for fp32."""
+    route = forward_route(q, k, v, sm_scale)
+    if route == "sm90" and do.data_ptr() % 16 != 0:
+        return "mma"
+    return route
+
+
 def sm90_padded_depth(head_dim: int) -> int:
-    """The depth the sm90 kernel pads head_dim to in shared memory (its
-    template instantiations, flash_attention_sm90.cu): 40 -> 48, 64, 80 and
-    128 as they are, any other multiple of 8 to the first that holds it."""
+    """The depth the sm90 kernels pad head_dim to in shared memory (their
+    template instantiations, flash_attention_sm90.cu and
+    flash_attention_bwd_sm90.cu): 40 -> 48, 64, 80 and 128 as they are, any
+    other multiple of 8 to the first that holds it."""
     if head_dim % 8 != 0 or not 8 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"the sm90 kernel takes no head_dim {head_dim}")
     return next(dp for dp in (48, 64, 80, 128) if head_dim <= dp)
@@ -180,11 +203,19 @@ def _count(wrapper, route: str) -> None:
     wrapper.launches_by_route[route] += 1
 
 
+def sm90_bwd_workspace_floats(bh: int, sq: int, head_dim: int) -> int:
+    """The fp32 workspace the sm90 backward adds dq into, beside the staged
+    lse and delta: per (b*h, 64-row q tile), 64 x padded depth partial sums
+    and 128 statistics (flash_attention_bwd_sm90.cu)."""
+    q_tiles = -(-sq // 64)
+    return bh * q_tiles * (64 * sm90_padded_depth(head_dim) + 128)
+
+
 def reset_launches(*wrappers) -> None:
-    """Set the launch counts of the given wrappers (default K1-K4) to 0,
-    their split by route too."""
+    """Set the launch counts of the given wrappers (default K1, K2 and
+    K3 + K4) to 0, their split by route too."""
     for w in wrappers or (flash_attention_fwd, flash_attention_lse,
-                          flash_attention_bwd_dq, flash_attention_bwd_dkv):
+                          flash_attention_bwd):
         w.launches = 0
         if hasattr(w, "launches_by_route"):
             w.launches_by_route = dict.fromkeys(ROUTES, 0)
@@ -301,46 +332,40 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                           sm_scale: Optional[float] = None) -> torch.Tensor:
-    """K3: dq in q's dtype."""
+def flash_attention_bwd(q, k, v, do, lse, delta,
+                        sm_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 + K4: dq, dk and dv in the inputs' dtype, from the forward's lse
+    and delta = rowsum(dO o O). On the card, by `backward_route`: the fused
+    sm90 kernel, or K3's and K4's mma.sync or SIMT kernels."""
     _check_bwd(q, k, v, do, lse, delta)
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
-        dq, _, _ = flash_attention_bwd_plain(q, k, v, do, lse, delta,
-                                             sm_scale)
-        return dq.to(q.dtype)
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                               sm_scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     b, h, sq, d = q.shape
-    dq = torch.empty_like(q)
-    _launch("cid_flash_attention_backward_dq", q.device, q, k, v, do, lse,
-            delta, dq, b * h, sq, k.shape[2], d, float(sm_scale),
-            _DTYPE_CODES[q.dtype])
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                            sm_scale: Optional[float] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: dk and dv in k's dtype."""
-    _check_bwd(q, k, v, do, lse, delta)
-    sm_scale = _scale(q, sm_scale)
-    if q.device.type == "cpu":
-        _, dk, dv = flash_attention_bwd_plain(q, k, v, do, lse, delta,
-                                              sm_scale)
-        return dk.to(k.dtype), dv.to(v.dtype)
-    b, h, sq, d = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch("cid_flash_attention_backward_dkv", q.device, q, k, v, do, lse,
-            delta, dk, dv, b * h, sq, k.shape[2], d, float(sm_scale),
-            _DTYPE_CODES[q.dtype])
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    sk = k.shape[2]
+    route = backward_route(q, k, v, do, sm_scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    args = (b * h, sq, sk, d, float(sm_scale), _DTYPE_CODES[q.dtype])
+    if route == "sm90":
+        workspace = torch.empty(sm90_bwd_workspace_floats(b * h, sq, d),
+                                dtype=torch.float32, device=q.device)
+        _launch("cid_flash_attention_backward_sm90", q.device, q, k, v, do,
+                lse, delta, dq, dk, dv, workspace, *args)
+    else:
+        _launch("cid_flash_attention_backward_dq", q.device, q, k, v, do,
+                lse, delta, dq, *args)
+        _launch("cid_flash_attention_backward_dkv", q.device, q, k, v, do,
+                lse, delta, dk, dv, *args)
+    _count(flash_attention_bwd, route)
+    return dq, dk, dv
 
 
 flash_attention_fwd.launches_by_route = {}
 flash_attention_lse.launches_by_route = {}
+flash_attention_bwd.launches_by_route = {}
 reset_launches()
 
 
@@ -350,7 +375,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention (JAX `_flash_diff`): the forward keeps
     q, k, v, o and the logsumexp; the backward takes
     delta = rowsum(dO o O) in fp32 (plain torch, as JAX computes it outside
-    any kernel), then dq from K3 and dk, dv from K4, in the inputs' dtype."""
+    any kernel), then dq, dk and dv from K3 + K4, in the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
@@ -365,8 +390,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         do = do.contiguous()
         acc = _stat_dtype(q)
         delta = (do.to(acc) * out.to(acc)).sum(dim=-1)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.sm_scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta,
                                          ctx.sm_scale)
         return dq, dk, dv, None
 
@@ -374,11 +398,10 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal multi-head attention, (B, H, Sq, D) x (B, H, Sk, D): K1
-    when no gradient is needed, FlashAttentionFunction (K2, K3, K4) when
+    when no gradient is needed, FlashAttentionFunction (K2; K3 + K4) when
     autograd records. The launches are counted on the kernels' wrappers:
     `flash_attention_fwd.launches` (K1), `flash_attention_lse.launches`
-    (K2), `flash_attention_bwd_dq.launches` (K3) and
-    `flash_attention_bwd_dkv.launches` (K4)."""
+    (K2) and `flash_attention_bwd.launches` (K3 + K4)."""
     _check(q, k, v)
     sm_scale = _scale(q, sm_scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

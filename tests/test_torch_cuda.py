@@ -1,9 +1,10 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version,
 for each dtype and head-dim (K1-K4) or channel-layout (K5, K6)
-instantiation, ragged tails included, K1's and K2's route (sm90, mma or
-f32) asserted from the launch counts; the autograd Function's gradients
-through the kernels against those through the plain versions; what the
-wrappers refuse; two perception networks on the card against the CPU. Needs
+instantiation, ragged tails included, the route of K1, K2 and the fused
+K3 + K4 (sm90, mma or f32) asserted from the launch counts; the autograd
+Function's gradients through the kernels against those through the plain
+versions; what the wrappers refuse; two perception networks on the card
+against the CPU. Needs
 an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it runs on a
 machine without it:
 
@@ -100,6 +101,32 @@ def test_misaligned_view_takes_mma_route(cuda_generator, lse):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", ["q", "do"])
+def test_misaligned_view_takes_mma_backward(cuda_generator, misaligned):
+    """A q or dO one element into its storage is off 16 bytes, which TMA
+    cannot load: K3 + K4 takes K3's and K4's mma.sync kernels, by the route
+    function and not by a failure, and still matches the plain backward."""
+    shape, sk = (2, 3, 333, 40), 517
+    q, k, v, do = _inputs(cuda_generator, shape, sk, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    if misaligned == "q":
+        q = buf[1:].view(shape).copy_(q)
+    else:
+        do = buf[1:].view(shape).copy_(do)
+    assert port_flash.backward_route(q, k, v, do) == "mma"
+    out, lse = port_flash.flash_attention_lse_plain(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    wrapper = port_flash.flash_attention_bwd
+    routes = dict(wrapper.launches_by_route)
+    grads = wrapper(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    _assert_one_launch_on(wrapper, routes, "mma")
+    for got, ref in zip(grads, port_flash.flash_attention_bwd_plain(
+            q, k, v, do, lse, delta)):
+        _assert_rel_l2(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_generator):
     q = torch.randn((1, 1, 8, 136), generator=cuda_generator, device="cuda")
     with pytest.raises(ValueError):
@@ -120,23 +147,32 @@ BWD_CASES = [
     ((2, 3, 1000, 40), 1037, torch.float32),
     ((2, 3, 333, 64), 517, torch.float32),
     ((1, 2, 130, 128), 70, torch.float32),
+    # the fused sm90 backward's edges: fp16 at head dims 40 and 80, Sq and
+    # Sk ragged at 80, 64 and 128, both under one tile, Sq far under Sk and
+    # the reverse, one batch*head
+    ((2, 4, 1024, 40), 1024, torch.float16),
+    ((2, 3, 1000, 80), 1037, torch.float16),
+    ((2, 2, 500, 128), 333, torch.bfloat16),
+    ((1, 2, 300, 128), 450, torch.float16),
+    ((1, 2, 50, 40), 30, torch.bfloat16),
+    ((1, 2, 40, 64), 700, torch.float16),
+    ((2, 2, 300, 40), 50, torch.bfloat16),
+    ((1, 1, 777, 64), 900, torch.bfloat16),
 ]
 
 
-# K2 also on the sm90 route's edges (BWD_CASES hold the backward's)
+# K2 also on the sm90 route's other edges (BWD_CASES hold the backward's)
 LSE_CASES = BWD_CASES + [
     ((2, 8, 4096, 40), 4096, torch.float16),
-    ((2, 3, 1000, 80), 1037, torch.float16),
-    ((2, 2, 500, 128), 333, torch.bfloat16),
-    ((2, 2, 300, 40), 50, torch.bfloat16),
     ((1, 1, 4096, 40), 4096, torch.float16),
 ]
 
 
 def _expected_route(dtype, d):
-    """The kernel a K1/K2 call on 16-byte aligned inputs with the default
-    scale must take: sm90 for bf16/fp16 at head dims that are multiples of 8,
-    mma for other 16-bit head dims, the SIMT kernel for fp32."""
+    """The kernel a K1, K2 or K3 + K4 call on 16-byte aligned inputs with the
+    default scale must take: sm90 for bf16/fp16 at head dims that are
+    multiples of 8, mma for other 16-bit head dims, the SIMT kernels for
+    fp32."""
     if dtype == torch.float32:
         return "f32"
     return "sm90" if d % 8 == 0 else "mma"
@@ -199,28 +235,32 @@ def test_lse_kernel_matches_plain(cuda_generator, shape, sk, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,sk,dtype", BWD_CASES)
 def test_backward_kernels_match_plain(cuda_generator, shape, sk, dtype):
+    """K3 + K4 (the fused sm90 kernel, or K3's and K4's mma.sync or SIMT
+    kernels) against the plain backward in fp32 and, for 16-bit inputs, at
+    its own precision, each output with its dropped-tile control."""
     q, k, v, do = _inputs(cuda_generator, shape, sk, dtype)
     out, lse = port_flash.flash_attention_lse_plain(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
-    n_dq = port_flash.flash_attention_bwd_dq.launches
-    n_dkv = port_flash.flash_attention_bwd_dkv.launches
-    dq = port_flash.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-    dk, dv = port_flash.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    wrapper = port_flash.flash_attention_bwd
+    before = wrapper.launches
+    routes = dict(wrapper.launches_by_route)
+    dq, dk, dv = wrapper(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
-    assert port_flash.flash_attention_bwd_dq.launches == n_dq + 1
-    assert port_flash.flash_attention_bwd_dkv.launches == n_dkv + 1
+    assert wrapper.launches == before + 1
+    _assert_one_launch_on(wrapper, routes, _expected_route(dtype, shape[3]))
     refs = port_flash.flash_attention_bwd_plain(q, k, v, do, lse, delta)
     same = [None] * 3 if dtype == torch.float32 else \
         port_flash.flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                              round_to=dtype)
     # controls: the last key tile dropped for dq, the last query tile for
-    # dk and dv
+    # dk and dv (all of them when Sq is under one tile: zero dk, dv)
     kc, qc = drop_last_tile(sk), drop_last_tile(shape[2])
     controls = [port_flash.flash_attention_bwd_plain(
         q, k[:, :, :kc], v[:, :, :kc], do, lse, delta)[0],
-        *port_flash.flash_attention_bwd_plain(
+        *(port_flash.flash_attention_bwd_plain(
             q[:, :, :qc], k, v, do[:, :, :qc], lse[:, :, :qc],
-            delta[:, :, :qc])[1:]]
+            delta[:, :, :qc])[1:] if qc else
+          (torch.zeros_like(k, dtype=torch.float32),) * 2)]
     for name, got, ref, ctl, sm in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                        refs, controls, same):
         assert got.dtype == dtype and got.shape == ref.shape, name
@@ -228,11 +268,13 @@ def test_backward_kernels_match_plain(cuda_generator, shape, sk, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 def test_function_gradients_match_plain(cuda_generator, dtype, monkeypatch):
     """Under autograd flash_attention returns the Function's output (the
-    gradient no longer drops on the card); its gradients through K2-K4
-    against the same Function with the plain versions swapped in."""
+    gradient no longer drops on the card); its gradients through K2 and
+    K3 + K4 (the fused sm90 backward for 16-bit inputs, one launch) against
+    the same Function with the plain versions swapped in."""
     shape, sk = (2, 3, 1000, 40), 1037
     q, k, v, do = _inputs(cuda_generator, shape, sk, dtype)
     grads = []
@@ -241,18 +283,20 @@ def test_function_gradients_match_plain(cuda_generator, dtype, monkeypatch):
             monkeypatch.setattr(port_flash, "flash_attention_lse",
                                 port_flash.flash_attention_lse_plain)
             monkeypatch.setattr(
-                port_flash, "flash_attention_bwd_dq",
-                lambda *a: port_flash.flash_attention_bwd_plain(*a)[0]
-                .to(dtype))
-            monkeypatch.setattr(
-                port_flash, "flash_attention_bwd_dkv",
+                port_flash, "flash_attention_bwd",
                 lambda *a: tuple(t.to(dtype) for t in
-                                 port_flash.flash_attention_bwd_plain(*a)[1:]))
+                                 port_flash.flash_attention_bwd_plain(*a)))
+        else:
+            routes = dict(port_flash.flash_attention_bwd.launches_by_route)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = port_flash.flash_attention(*leaves)
         assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
         out.backward(do)
         grads.append([t.grad.float() for t in leaves])
+        if not plain:
+            torch.cuda.synchronize()
+            _assert_one_launch_on(port_flash.flash_attention_bwd, routes,
+                                  _expected_route(dtype, shape[3]))
     torch.cuda.synchronize()
     for got, ref in zip(*grads):
         _assert_rel_l2(got, ref, dtype)
@@ -266,22 +310,24 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(cuda_generator):
     with pytest.raises(ValueError):          # head_dim > 128
         port_flash.flash_attention_lse(q, k, v)
     with pytest.raises(ValueError):
-        port_flash.flash_attention_bwd_dq(q, k, v, do, lse, lse)
+        port_flash.flash_attention_bwd(q, k, v, do, lse, lse)
     q, k, v, do = (t[..., :64].contiguous() for t in (q, k, v, do))
     with pytest.raises(TypeError):           # mixed dtypes
         port_flash.flash_attention_lse(q, k.float(), v)
     with pytest.raises(TypeError):
-        port_flash.flash_attention_bwd_dkv(q, k, v.half(), do, lse, lse)
+        port_flash.flash_attention_bwd(q, k, v.half(), do, lse, lse)
     with pytest.raises(TypeError):           # float64 on the card
         port_flash.flash_attention_lse(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):          # non-contiguous
         port_flash.flash_attention_lse(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError):
-        port_flash.flash_attention_bwd_dq(q, k, v, do.transpose(2, 3)
-                                          .contiguous().transpose(2, 3),
-                                          lse, lse)
+        port_flash.flash_attention_bwd(q, k, v, do.transpose(2, 3)
+                                       .contiguous().transpose(2, 3),
+                                       lse, lse)
     with pytest.raises(TypeError):           # lse must be fp32
-        port_flash.flash_attention_bwd_dkv(q, k, v, do, lse.half(), lse)
+        port_flash.flash_attention_bwd(q, k, v, do, lse.half(), lse)
+    with pytest.raises(ValueError):          # delta (B, H, Sq)
+        port_flash.flash_attention_bwd(q, k, v, do, lse, lse[..., :10])
 
 
 # K5/K6 shapes: BiSeNet's stem (training at batch 16, 448 px crops; the

@@ -152,7 +152,8 @@ def test_sm90_library_build_and_symbols():
     cmd = build.nvcc_command("nvcc", [src], build.BUILD_DIR / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-Xptxas") + 1] == "-v"
-    text = src.read_text()
+    # the source and the Hopper helpers it shares with the backward
+    text = src.read_text() + (build.CSRC_DIR / "sm90_common.cuh").read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
                    "mbarrier.try_wait", "ex2.approx.ftz.f32",
                    'extern "C" int cid_flash_attention_forward_sm90',

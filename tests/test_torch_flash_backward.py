@@ -1,8 +1,8 @@
 """K2, K3 and K4 in the PyTorch port on the CPU: the plain versions against
 the JAX Pallas kernels (interpret mode), the autograd Function against
-autograd through plain attention, gradcheck in float64, and the dispatch
-under autograd. The kernels themselves are held against the plain versions
-on the card in test_torch_cuda.py."""
+autograd through plain attention, gradcheck in float64, the dispatch under
+autograd, and the backward wrapper's route. The kernels themselves are held
+against the plain versions on the card in test_torch_cuda.py."""
 import importlib
 
 import numpy as np
@@ -128,8 +128,7 @@ def test_grad_fn_is_the_function_on_cpu():
     q, k, v, _ = _t(*_arrays(5, (1, 2, 64, 16), 64))
     launches = [port_flash.flash_attention_fwd.launches,
                 port_flash.flash_attention_lse.launches,
-                port_flash.flash_attention_bwd_dq.launches,
-                port_flash.flash_attention_bwd_dkv.launches]
+                port_flash.flash_attention_bwd.launches]
     out = port_flash.flash_attention(q.requires_grad_(True), k, v)
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     out.sum().backward()
@@ -139,8 +138,7 @@ def test_grad_fn_is_the_function_on_cpu():
     assert port_flash.flash_attention(q.detach(), k, v).grad_fn is None
     assert launches == [port_flash.flash_attention_fwd.launches,
                         port_flash.flash_attention_lse.launches,
-                        port_flash.flash_attention_bwd_dq.launches,
-                        port_flash.flash_attention_bwd_dkv.launches]
+                        port_flash.flash_attention_bwd.launches]
 
 
 def test_dispatch_under_grad_reaches_the_function():
@@ -160,13 +158,12 @@ def test_backward_wrappers_check_their_inputs():
     q, k, v, do = _t(*_arrays(6, (1, 2, 20, 16), 30))
     lse = torch.zeros(1, 2, 20)
     with pytest.raises(ValueError):
-        port_flash.flash_attention_bwd_dq(q, k, v, do[:, :, :10], lse, lse)
+        port_flash.flash_attention_bwd(q, k, v, do[:, :, :10], lse, lse)
     with pytest.raises(ValueError):
-        port_flash.flash_attention_bwd_dkv(q, k, v, do, lse[..., :5], lse)
+        port_flash.flash_attention_bwd(q, k, v, do, lse[..., :5], lse)
     with pytest.raises(TypeError):
-        port_flash.flash_attention_bwd_dq(q, k, v, do, lse.half(), lse)
-    dq = port_flash.flash_attention_bwd_dq(q, k, v, do, lse, lse)
-    dk, dv = port_flash.flash_attention_bwd_dkv(q, k, v, do, lse, lse)
+        port_flash.flash_attention_bwd(q, k, v, do, lse.half(), lse)
+    dq, dk, dv = port_flash.flash_attention_bwd(q, k, v, do, lse, lse)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
 
@@ -179,5 +176,118 @@ def test_backward_source_and_libraries():
     assert "cid_flash_attention_forward_lse" in (
         build.CSRC_DIR / "flash_attention.cu").read_text()
     assert set(build.LIBRARIES) == {"flash_attention", "flash_attention_sm90",
-                                    "flash_attention_bwd", "fused_bn_act"}
+                                    "flash_attention_bwd",
+                                    "flash_attention_bwd_sm90",
+                                    "fused_bn_act"}
     assert "atomic" not in text.split("#include")[1]   # deterministic sums
+
+
+def test_fused_backward_source_and_library():
+    """The fused sm90 backward is its own library, names the two Pallas
+    kernels it replaces, shares the forward's Hopper helpers and exports
+    the C entry point the wrapper binds."""
+    assert build.LIBRARIES["flash_attention_bwd_sm90"] == (
+        "flash_attention_bwd_sm90.cu",)
+    text = (build.CSRC_DIR / "flash_attention_bwd_sm90.cu").read_text()
+    for needle in ("_flash_bwd_dq_kernel", "_flash_bwd_dkv_kernel",
+                   "consistentid_tpu/ops/flash_attention.py:273", ":308",
+                   '#include "sm90_common.cuh"', "wgmma_ss_n64", "wgmma_rs",
+                   "m64n48k16", "cp.reduce.async.bulk",
+                   'extern "C" int cid_flash_attention_backward_sm90'):
+        assert needle in text, needle
+    assert '#include "sm90_common.cuh"' in (
+        build.CSRC_DIR / "flash_attention_sm90.cu").read_text()
+    sig = port_flash._SIGNATURES["cid_flash_attention_backward_sm90"]
+    assert sig[0] == "flash_attention_bwd_sm90"
+    # q, k, v, dO, lse, delta, dq, dk, dv, workspace; bh, sq, sk, d; scale,
+    # dtype, stream
+    assert len(sig[1]) == 17
+
+
+@pytest.mark.parametrize("shape,dtype,offset,do_offset,scale,route", [
+    ((2, 8, 4096, 40), torch.bfloat16, 0, 0, None, "sm90"),  # training L0
+    ((2, 8, 1024, 80), torch.bfloat16, 0, 0, None, "sm90"),  # training L1
+    ((1, 2, 77, 128), torch.float16, 0, 0, None, "sm90"),
+    ((1, 2, 77, 36), torch.bfloat16, 0, 0, None, "mma"),     # d % 8 != 0
+    ((1, 2, 77, 40), torch.bfloat16, 4, 0, None, "mma"),     # q 8 bytes in
+    ((1, 2, 77, 40), torch.bfloat16, 0, 4, None, "mma"),     # dO 8 bytes in
+    ((1, 2, 77, 40), torch.bfloat16, 8, 8, None, "sm90"),    # 16 bytes in
+    ((1, 2, 77, 80), torch.float16, 0, 0, -0.5, "mma"),      # negative scale
+    ((1, 2, 77, 40), torch.float32, 0, 0, None, "f32"),
+    ((1, 2, 77, 36), torch.float32, 0, 0, None, "f32"),
+])
+def test_backward_route(shape, dtype, offset, do_offset, scale, route):
+    """The kernels K3 + K4 launch for a CUDA call, decided from dtype, head
+    dim, alignment and scale alone (CPU tensors stand for them here)."""
+    def view(n):
+        buf = torch.zeros(n + int(np.prod(shape)), dtype=dtype)
+        return buf[n:].view(shape)
+    q, do = view(offset), view(do_offset)
+    k, v = torch.zeros(shape, dtype=dtype), torch.zeros(shape, dtype=dtype)
+    assert q.is_contiguous() and do.is_contiguous()
+    assert port_flash.backward_route(q, k, v, do, scale) == route
+
+
+@pytest.mark.parametrize("shape,sk,dtype", [
+    ((1, 2, 200, 40), 300, torch.float32),
+    ((1, 2, 130, 80), 77, torch.bfloat16),
+])
+def test_bwd_wrapper_on_cpu_is_the_plain_version(shape, sk, dtype):
+    """On CPU tensors the wrapper returns the plain backward's dq, dk, dv in
+    the inputs' dtype, bit for bit, and launches nothing."""
+    q, k, v, do = (t.to(dtype) for t in _t(*_arrays(9, shape, sk)))
+    lse = torch.logsumexp(q.float() @ k.float().transpose(-1, -2)
+                          / np.sqrt(shape[-1]), dim=-1)
+    delta = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        shape[:3], np.float32))
+    before = port_flash.flash_attention_bwd.launches
+    got = port_flash.flash_attention_bwd(q, k, v, do, lse, delta)
+    want = port_flash.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+    assert port_flash.flash_attention_bwd.launches == before
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, w.to(dtype)), name
+
+
+def test_bwd_wrapper_matches_jax_backward():
+    """The wrapper against the JAX package's `_flash_backward` (Pallas,
+    interpret mode) at one small ragged shape: fp32, summation order only,
+    1e-5 on O(1) values."""
+    shape, sk = (1, 1, 70, 16), 90
+    q, k, v, do = _arrays(11, shape, sk)
+    scale = 0.3
+    out, lse = jax_flash._flash_forward_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+        block_q=128, block_k=128, interpret=True)
+    delta = jnp.sum(jnp.asarray(do) * out, axis=-1)
+    want = jax_flash._flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(do), lse,
+        delta, scale, block_q=128, block_k=128, interpret=True)
+    got = port_flash.flash_attention_bwd(
+        *_t(q, k, v, do, np.asarray(lse), np.asarray(delta)), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_sm90_bwd_workspace_floats():
+    """dq partial sums (64 x padded depth) and 128 statistics per (b*h,
+    64-row q tile)."""
+    assert port_flash.sm90_bwd_workspace_floats(16, 4096, 40) == \
+        16 * 64 * (64 * 48 + 128)
+    assert port_flash.sm90_bwd_workspace_floats(3, 65, 80) == \
+        3 * 2 * (64 * 80 + 128)
+    with pytest.raises(ValueError):
+        port_flash.sm90_bwd_workspace_floats(1, 64, 36)
+
+
+def test_reset_launches_covers_the_backward():
+    bwd = port_flash.flash_attention_bwd
+    saved = (bwd.launches, dict(bwd.launches_by_route))
+    try:
+        bwd.launches, bwd.launches_by_route["sm90"] = 2, 2
+        port_flash.reset_launches()
+        assert bwd.launches == 0
+        assert bwd.launches_by_route == {"sm90": 0, "mma": 0, "f32": 0}
+    finally:
+        bwd.launches, bwd.launches_by_route = saved[0], saved[1]
