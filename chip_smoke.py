@@ -20,8 +20,11 @@ Phases, each printing its result; any failure exits non-zero:
      Sk under one tile, head dims 64 and 128 and one batch*head; mma at
      head dim 36; f32), each call asserting the route it launched on; at
      the main shapes the mma.sync kernels they replaced are timed beside
-     them, and the fused backward's dq (summed by atomic adds) is read
-     twice for its run-to-run difference;
+     them; K1 also at the infer CLI's shapes (768x512);
+  3b. dq order: the fused backward at the training shapes gives the same
+     dq, dk, dv bits over 50 calls, alone and beside a busy stream, and is
+     timed in turns against a build of its source that adds dQ in fp32 in
+     arrival order (compiled beside the libraries);
   4. serving: a full-width SD1.5 ConsistentID bundle (bf16, LoRA rank 128,
      4 IP tokens, ViT-H, CLIP-L, full VAE; random weights from a seed) runs
      generate() at batch 4, 50 DDIM steps, 512 px; checks the output and
@@ -56,8 +59,22 @@ Phases, each printing its result; any failure exits non-zero:
      the face embedder and a full-width safety checker (ViT-L/14, 24
      layers) runs the headline request with no injected labels or
      embedding; checks 500 K1 launches on the sm90 route (none of K2-K6)
-     and a (4,) flag array.
-Phase 9 runs after phase 3, phases 10 and 11 after phase 5 (before the
+     and a (4,) flag array;
+ 12. load: that bundle and the perception models written as a
+     reference-layout SD1.5 set (fp16) in a temporary directory, removed at
+     the end, then `load_sd15_consistentid` on the card: every tensor the
+     written bits after the fp16 cast;
+ 13. infer: `apps.infer.main` on the set at the JAX defaults (Euler, 50
+     steps, 768x512, CFG 5, seed 2024) from a PNG face: a (768, 512, 3)
+     PNG, 500 K1 launches on sm90, the float path finite and within one
+     grey level of the PNG;
+ 14. samplers: the five at 8 steps, 512 px: finite, DDPM the same bits
+     twice, a batch's request against the request alone (recorded);
+ 15. serve: `apps.serve.serve` on 127.0.0.1, buckets warmed, 6 concurrent
+     requests (512 px, 50 DDIM steps) answered 200 in at least 2 batches,
+     500 K1 launches per batch, a malformed body and an oversized image
+     refused.
+Phase 9 runs after phase 3, phases 10 to 15 after phase 5 (before the
 bundle is trained).
 Kernel times on the card are `cuda_ms`: CUDA events around calls the host
 queued behind a sleep kernel, so the host's time per call is not counted;
@@ -66,11 +83,14 @@ sleep (on an H100 one iresnet50 call could not be queued behind one).
 The last three lines are the kernels' JSON ({"kernels": [...]}), the
 nvidia-smi reading and {"ok": true, "device": {...}}.
 """
+import gc
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -254,6 +274,9 @@ def kernel_phase():
     cases = [
         ("level0", (8, 8, 4096, 40), 4096, torch.bfloat16, 20),
         ("level1", (8, 8, 1024, 80), 1024, torch.bfloat16, 50),
+        # the infer CLI's default request (768x512, one image, CFG pair)
+        ("infer_level0", (2, 8, 6144, 40), 6144, torch.bfloat16, 20),
+        ("infer_level1", (2, 8, 1536, 80), 1536, torch.bfloat16, 50),
         ("level0_fp16", (8, 8, 4096, 40), 4096, torch.float16, None),
         ("level1_fp16", (8, 8, 1024, 80), 1024, torch.float16, None),
         ("ragged_bf16_d40", (2, 3, 1000, 40), 1037, torch.bfloat16, None),
@@ -523,8 +546,9 @@ def train_kernel_phase():
             cuda_ms(pair_call(q, k, v, do, ref_lse, delta), iters) if main
             else None)
         if name == "level0":
-            # dq is summed by bulk adds in no fixed order: its last bits
-            # may move from call to call (dk's and dv's cannot)
+            # dq's key blocks add as fixed-point integers, exact in any
+            # order: a second call gives the same bits (dq_order_phase
+            # holds 50 calls, with and without a busy second stream)
             again = fa.flash_attention_bwd(q, k, v, do, ref_lse, delta)
             torch.cuda.synchronize()
             readings["K3+K4"].update(
@@ -532,6 +556,9 @@ def train_kernel_phase():
                 dk_dv_run_to_run_equal=bool(torch.equal(again[1], grads[1])
                                             and torch.equal(again[2],
                                                             grads[2])))
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                raise AssertionError("K3 + K4 level0: a second call gave "
+                                     "other bits")
             del again
         del grads
 
@@ -1649,6 +1676,393 @@ def photo_generate(bundle, parser, embedder, checker):
                 nsfw_flags=np.asarray(flags).tolist())
 
 
+def build_fp32_dq_variant():
+    """The fused backward with dQ's partial sums added in fp32 in arrival
+    order (its source with kFixedDq = false): the kernel before dQ was made
+    deterministic, timed beside it in `dq_order_phase`. Built by nvcc for
+    sm_90a under build/kernels/ like the port's libraries; returns its C
+    entry point (ctypes)."""
+    import ctypes
+    from consistentid_torch.ops import build
+    from consistentid_torch.ops import flash_attention as fa
+    text = (build.CSRC_DIR / "flash_attention_bwd_sm90.cu").read_text()
+    flag = "constexpr bool kFixedDq = true;"
+    if flag not in text:
+        raise AssertionError(f"{flag!r} not in flash_attention_bwd_sm90.cu")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "flash_attention_bwd_sm90_fp32_dq.cu"
+    src.write_text(text.replace(flag, "constexpr bool kFixedDq = false;"))
+    out = src.with_suffix(".so")
+    cmd = build.nvcc_command(build.find_nvcc(), [src], out)
+    cmd.insert(1, f"-I{build.CSRC_DIR}")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the fp32-dQ variant:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    fn = ctypes.CDLL(str(out)).cid_flash_attention_backward_sm90
+    fn.argtypes = fa._SIGNATURES["cid_flash_attention_backward_sm90"][1]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dq_order_phase(variant):
+    """The fused backward (K3 + K4) at the training L0 and L1 (bf16): held
+    against the plain backward (`check_backward`'s limits); dq, dk and dv
+    the same bits over 50 calls, then over 50 more while a second stream
+    runs matmuls (so its CTAs run and finish in other orders); timed in
+    turns (this kernel, the fp32-dQ variant, the variant, this kernel)
+    beside `build_fp32_dq_variant`, which adds dQ in arrival order."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.testing import KERNEL_REL_L2_16BIT, rel_l2
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    rows = []
+    for name, shape in (("level0", (2, 8, 4096, 40)),
+                        ("level1", (2, 8, 1024, 80))):
+        b, h, sq, d = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_attention_lse_plain(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        first, readings = check_backward(f"{name} (dq order)", q, k, v, do,
+                                         lse, delta, KERNEL_REL_L2_16BIT)
+
+        def call():
+            return fa.flash_attention_bwd(q, k, v, do, lse, delta)
+
+        side = torch.cuda.Stream()
+        a = torch.randn((4096, 4096), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        equal = {}
+        for busy in (False, True):
+            same = True
+            for _ in range(50):
+                if busy:
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        for _ in range(4):
+                            a = (a @ a).clamp(-1.0, 1.0)
+                got = call()
+                same = same and all(torch.equal(g, f)
+                                    for g, f in zip(got, first))
+            torch.cuda.synchronize()
+            equal["with_busy_stream" if busy else "alone"] = same
+        if not all(equal.values()):
+            raise AssertionError(f"K3 + K4 {name}: dq, dk, dv not the same "
+                                 f"bits over 50 calls: {equal}")
+        ws = torch.empty(fa.sm90_bwd_workspace_floats(b * h, sq, d),
+                         device="cuda")
+        vgrads = [torch.empty_like(t) for t in (q, k, v)]
+
+        def variant_call():
+            err = variant(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          *(t.data_ptr() for t in vgrads), ws.data_ptr(),
+                          b * h, sq, sq, d, 1.0 / math.sqrt(d),
+                          fa._DTYPE_CODES[q.dtype],
+                          torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"fp32-dQ variant: CUDA error {err}")
+
+        variant_call()
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+        variant_rel = max(rel_l2(g, r) for g, r in zip(vgrads, ref))
+        check(f"K3 + K4 {name} fp32-dQ variant", variant_rel, None,
+              KERNEL_REL_L2_16BIT)
+        turns = [cuda_ms(call, 20), cuda_ms(variant_call, 20),
+                 cuda_ms(variant_call, 20), cuda_ms(call, 20)]
+        ms, variant_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        row = dict(case=name, shape=list(shape), bit_equal_over_50=equal,
+                   rel_l2=readings["rel_l2"],
+                   same_precision_rel_l2=readings["same_precision_rel_l2"],
+                   fp32_dq_rel_l2=variant_rel, ms=ms, fp32_dq_ms=variant_ms,
+                   turns_ms=turns)
+        rows.append(row)
+        log(f"dq order {name} {b}x{h}x{sq}x{d} bf16: dq, dk, dv the same "
+            f"bits over 50 calls {equal}; rel_l2 {readings['rel_l2']:.3g}, "
+            f"at its own precision {readings['same_precision_rel_l2']:.3g}; "
+            f"fixed-point dQ {ms:.4f} ms, fp32 dQ in arrival order "
+            f"{variant_ms:.4f} ms (turns {[round(t, 4) for t in turns]})")
+        del q, k, v, do, out, lse, delta, first, a, ws, vgrads, ref
+    return rows
+
+
+def write_checkpoint_set(bundle, hooks, outdir):
+    """The serving bundle and the perception models, random full-width
+    weights, written as a reference-layout SD1.5 set in fp16 (as diffusers
+    dumps ship) with the port's exporters."""
+    from consistentid_torch.io.export import write_reference_checkpoints
+    from consistentid_torch.testing import synthetic_clip_tokenizer
+    parser, embedder, checker = hooks
+    t0 = time.perf_counter()
+    paths, nbytes = write_reference_checkpoints(
+        outdir, bundle, parser=parser.model, embedder=embedder.model,
+        detector=embedder.detector.model, safety_checker=checker.model,
+        vocab=synthetic_clip_tokenizer().encoder)
+    seconds = time.perf_counter() - t0
+    log(f"checkpoint set: {nbytes} bytes ({nbytes / 2 ** 30:.2f} GiB) fp16 "
+        f"in {seconds:.1f} s: {sorted(paths)}")
+    return paths, dict(bytes=nbytes, write_s=seconds)
+
+
+def load_phase(bundle, hooks, paths):
+    """`load_sd15_consistentid` (and its `load_face_stack`) on the written
+    set, on the card; every loaded tensor against the one written, the
+    same bits after the fp16 cast (x.to(fp16).to(its dtype))."""
+    import torch
+    from consistentid_torch.pipelines.loading import load_sd15_consistentid
+    kw = {k: v for k, v in paths.items() if k != "base"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = load_sd15_consistentid(paths["base"], device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    parser, embedder, checker = hooks
+    pairs = {"bundle": (pipe.bundle, bundle),
+             "parser": (pipe.face_parser.model, parser.model),
+             "embedder": (pipe.face_embedder.model, embedder.model),
+             "detector": (pipe.face_embedder.detector.model,
+                          embedder.detector.model),
+             "safety_checker": (pipe.safety_checker.model, checker.model)}
+    counts, bad = {}, []
+    for name, (got_m, src_m) in pairs.items():
+        got, src = got_m.state_dict(), src_m.state_dict()
+        if set(got) != set(src):
+            raise AssertionError(f"load {name}: tensors {set(got) ^ set(src)}")
+        floats = [k for k in src if src[k].is_floating_point()]
+        for key in floats:
+            want = src[key].to(torch.float16).to(got[key].dtype)
+            if not torch.equal(got[key], want.to(got[key].device)):
+                bad.append(f"{name}.{key}")
+        counts[name] = len(floats)
+    if bad:
+        raise AssertionError(f"loaded tensors differ from the written ones: "
+                             f"{bad[:8]} ({len(bad)} in all)")
+    log(f"load: load_sd15_consistentid + load_face_stack on the card in "
+        f"{seconds:.2f} s; every tensor the written bits after the fp16 "
+        f"cast: {counts}")
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(load_s=seconds, tensors=counts)
+
+
+def infer_phase(paths, outdir):
+    """`apps.infer.main` on the written set at the JAX defaults (Euler, 50
+    steps, 768x512, CFG 5, seed 2024), from a PNG face, with SCRFD,
+    ArcFace, BiSeNet and the safety checker: the PNG it writes decodes to
+    (768, 512, 3) uint8; K1 launched 500 times, all on the sm90 route; the
+    same request through `generate(return_float=True)` is finite and, the
+    safety checker not flagging it, the PNG's pixels within one grey
+    level."""
+    import numpy as np
+    import torch
+    from consistentid_torch.apps import infer
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.utils.image import to_uint8
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    face = face_inputs()[0]
+    face_path = str(Path(outdir) / "face.png")
+    with open(face_path, "wb") as f:
+        f.write(encode_png(face))
+    out = str(Path(outdir) / "infer.png")
+    argv = ["--base", paths["base"],
+            "--consistentid", paths["consistentid_path"],
+            "--image-encoder", paths["image_encoder_path"],
+            "--bisenet", paths["bisenet_path"],
+            "--arcface", paths["arcface_path"],
+            "--scrfd", paths["scrfd_path"],
+            "--image", face_path, "--prompt", PROMPT, "--out", out]
+    counters = launch_counters() + bn_counters()
+    fa.reset_launches(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = infer.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = [w.launches for w in counters]
+    by_route = dict(fa.flash_attention_fwd.launches_by_route)
+    stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+    flags = np.asarray(pipe.last_nsfw_flags).tolist()
+    with open(out, "rb") as f:
+        png = decode_png(f.read())
+    if png.shape != (768, 512, 3) or png.dtype != np.uint8:
+        raise AssertionError(f"infer PNG {png.shape} {png.dtype}")
+    if launches != [500, 0, 0, 0, 0] or by_route["sm90"] != 500:
+        raise AssertionError(f"infer: launches K1, K2, K3 + K4, K5, K6 "
+                             f"{launches} (K1 {by_route}), expected K1 500 "
+                             "(10 per UNet call x 50 steps) on sm90 only")
+    negative = infer.build_parser().get_default("negative_prompt")
+    images = pipe.generate(PROMPT, face, negative_prompt=negative,
+                           seed=2024, return_float=True)
+    if not torch.isfinite(images.float()).all():
+        raise AssertionError("infer: non-finite decoded images")
+    diff = None
+    if not any(flags):  # a flagged image is written black
+        diff = int(np.abs(to_uint8(images)[0].cpu().numpy().astype(int)
+                          - png).max())
+        if diff > 1:
+            raise AssertionError(f"infer: the PNG is off the request's "
+                                 f"image by {diff} grey levels")
+    log(f"infer CLI (Euler, 50 steps, 768x512, CFG 5, seed 2024, SCRFD + "
+        f"ArcFace + BiSeNet + safety checker): {seconds:.3f} s with the "
+        f"load, stages ms {stages}, flags {flags}, K1 launches {launches[0]}"
+        f" {by_route}; PNG {png.shape}, off the float path's pixels by "
+        f"{diff} grey levels")
+    return pipe, dict(seconds=seconds, stage_ms=stages, launches=launches[0],
+                      launches_by_route=by_route, nsfw_flags=flags,
+                      png_vs_float_path_max_diff=diff)
+
+
+def samplers_phase(pipe):
+    """The five samplers at full width through `generate_batch` (batch 1,
+    512 px, 8 steps): finite images; DDPM's with one seed the same bits
+    twice; Euler's request 0 of a batch of 2 against the request alone
+    (the uint8 difference recorded, not held: bf16 products of another
+    batch size may tile differently)."""
+    import numpy as np
+    import torch
+    from consistentid_torch.apps.infer import SCHEDULERS
+
+    face = face_inputs()[0]
+    face2 = np.ascontiguousarray(face[:, ::-1])
+    kw = dict(height=512, width=512, num_inference_steps=8)
+    stats = {}
+    for name in SCHEDULERS:
+        t0 = time.perf_counter()
+        img = pipe.generate_batch([PROMPT], [face], seeds=[7],
+                                  scheduler=name, return_float=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(img.float()).all():
+            raise AssertionError(f"sampler {name}: non-finite images")
+        stats[name] = dict(s=time.perf_counter() - t0,
+                           std=float(img.float().std()))
+        if name == "ddpm":
+            again = pipe.generate_batch([PROMPT], [face], seeds=[7],
+                                        scheduler=name, return_float=True,
+                                        **kw)
+            if not torch.equal(img, again):
+                raise AssertionError("ddpm: one seed, other bits")
+    pair = pipe.generate_batch([PROMPT, PROMPT], [face, face2], seeds=[7, 8],
+                               scheduler="euler", **kw)
+    alone = pipe.generate_batch([PROMPT], [face], seeds=[7],
+                                scheduler="euler", **kw)
+    diff = int(np.abs(pair[0].astype(int) - alone[0]).max())
+    log(f"samplers (batch 1, 512 px, 8 steps): {stats}; ddpm the same bits "
+        f"twice; euler request 0 of 2 against alone: max uint8 difference "
+        f"{diff}")
+    return dict(samplers=stats, euler_batch_vs_alone_max_diff=diff)
+
+
+def serve_phase(pipe):
+    """`apps.serve.serve` on 127.0.0.1 (a free port) over the loaded
+    pipeline at 512 px, 50 DDIM steps, max batch 4: buckets 1, 2 and 4
+    warmed; 6 concurrent /generate requests (PNG faces, their own seeds)
+    each answered 200 with a (512, 512, 3) PNG, in at least 2 batches
+    (/healthz); a malformed body 400, an oversized image 400 or 413."""
+    import base64
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from consistentid_torch.apps.serve import serve
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    serving = ConsistentIDPipeline(
+        pipe.bundle, pipe.tokenizer,
+        pipeline_config=PipelineConfig(height=512, width=512,
+                                       num_inference_steps=50,
+                                       start_merge_step=30,
+                                       scheduler="ddim"),
+        face_parser=pipe.face_parser, face_embedder=pipe.face_embedder,
+        safety_checker=pipe.safety_checker)
+    server, batcher = serve(serving, port=0, max_batch=4, window_ms=200)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(body: bytes):
+        req = urllib.request.Request(url + "/generate", data=body)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                code, payload = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, payload = e.code, json.loads(e.read())
+        return code, payload, time.perf_counter() - t0
+
+    def health():
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    try:
+        t0 = time.perf_counter()
+        batcher.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        face = face_inputs()[0]
+        rng = np.random.RandomState(5)
+        bodies = [json.dumps({
+            "prompt": PROMPT, "seed": 100 + i,
+            "image_b64": base64.b64encode(encode_png(np.clip(
+                face.astype(int) + rng.randint(-8, 9, face.shape), 0, 255)
+                .astype(np.uint8))).decode()}).encode() for i in range(6)]
+        before = health()
+        counters = launch_counters() + bn_counters()
+        fa.reset_launches(*counters)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(6) as pool:
+            replies = list(pool.map(post, bodies))
+        wall = time.perf_counter() - t0
+        after = health()
+        launches = [w.launches for w in counters]
+        batches = after["batches"] - before["batches"]
+        requests = after["requests"] - before["requests"]
+        sizes = []
+        for code, payload, _ in replies:
+            if code != 200:
+                raise AssertionError(f"serve: reply {code} {payload}")
+            img = decode_png(base64.b64decode(payload["image_b64"]))
+            if img.shape != (512, 512, 3):
+                raise AssertionError(f"serve: image {img.shape}")
+            sizes.append(payload["batch_size"])
+        if requests != 6 or batches < 2:
+            raise AssertionError(f"serve: {requests} requests in {batches} "
+                                 "batches, expected 6 in at least 2")
+        if launches[1:] != [0, 0, 0, 0] or launches[0] != 500 * batches:
+            raise AssertionError(f"serve: launches K1, K2, K3 + K4, K5, K6 "
+                                 f"{launches}, expected K1 500 per batch")
+        bad = post(b"{not json")[0]
+        huge = post(json.dumps({"prompt": "x", "image_b64": base64.b64encode(
+            encode_png(np.zeros((8, 5000, 3), np.uint8))).decode()})
+            .encode())[0]
+        if bad != 400 or huge not in (400, 413):
+            raise AssertionError(f"serve: malformed body {bad}, oversized "
+                                 f"image {huge}")
+        latency = [r[2] for r in replies]
+        log(f"serve (512 px, 50 DDIM steps, max batch 4; buckets warmed in "
+            f"{warm_s:.1f} s): 6 concurrent requests in {wall:.2f} s = "
+            f"{6 / wall * 60:.2f} requests/min, per request "
+            f"{[round(x, 2) for x in latency]} s, {batches} batches "
+            f"(sizes {sizes}), K1 {launches[0] // batches} launches per "
+            f"batch; malformed body {bad}, oversized image {huge}")
+        return dict(warmup_s=warm_s, wall_s=wall,
+                    requests_per_min=6 / wall * 60, request_s=latency,
+                    batches=batches, batch_sizes=sizes,
+                    k1_launches_per_batch=launches[0] // batches,
+                    malformed_code=bad, oversized_code=huge)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -1672,8 +2086,10 @@ def main() -> int:
 
     from consistentid_torch.ops import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(build.LIBRARIES)) as pool:  # one nvcc each
+    with ThreadPoolExecutor(len(build.LIBRARIES) + 1) as pool:  # nvcc each
+        variant = pool.submit(build_fp32_dq_variant)
         list(pool.map(build.load_library, build.LIBRARIES))
+        fp32_dq = variant.result()
     sources = [s for srcs in build.LIBRARIES.values() for s in srcs]
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR.name}/ in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel: "
@@ -1682,13 +2098,26 @@ def main() -> int:
 
     k1_rows = kernel_phase()
     train_rows = train_kernel_phase()
+    dq_order = dq_order_phase(fp32_dq)
     bn_rows, bn_launches = bn_kernel_phase()
     bundle, main = main_path()
     path = unet_path_check(bundle)
     profile = profile_unet(bundle)
     hooks, perception = perception_phase()
     photo = photo_generate(bundle, *hooks)
-    del hooks
+    tmp = tempfile.mkdtemp(prefix="cid_checkpoints_")
+    try:
+        paths, written = write_checkpoint_set(bundle, hooks, tmp)
+        loaded = {**written, **load_phase(bundle, hooks, paths)}
+        del hooks
+        infer_pipe, inferred = infer_phase(paths, tmp)
+        samplers = samplers_phase(infer_pipe)
+        served = serve_phase(infer_pipe)
+        del infer_pipe
+        gc.collect()  # the server's handler objects hold it in cycles
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     state, train = training_path(bundle)
     train_profile = profile_train_step(bundle, state)
     train_path = train_unet_path_check(bundle, state)
@@ -1723,7 +2152,14 @@ def main() -> int:
         {**entry("flash_attention_fwd (K1)", fwd_src, f"{jax_src}:63",
                  main["launches"], k1_rows, "sdpa forward"), **sm90_info,
          "launches_by_route": main["launches_by_route"],
-         "photo_launches_by_route": photo["launches_by_route"]},
+         "photo_launches_by_route": photo["launches_by_route"],
+         "launches_per_infer_call": inferred["launches"],
+         "infer_launches_by_route": inferred["launches_by_route"],
+         "launches_per_served_batch": served["k1_launches_per_batch"],
+         "launches_note": "launches: per generate (batch 4, 50 DDIM steps,"
+                          " 512 px); also per infer call (768x512, 50 "
+                          "Euler steps) and per served batch (512 px, 50 "
+                          "DDIM steps)"},
         {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
@@ -1732,13 +2168,15 @@ def main() -> int:
                  f"{jax_src}:273", k34, train_rows["K3+K4"],
                  "sdpa backward alone (dq, dk, dv)"),
          "also_replaces": f"{jax_src}:308",
-         "dispatch": "sm90 (one fused wgmma + TMA kernel, with a statistics "
-                     "set-up and a dq pass); K3's and K4's mma.sync kernels "
-                     "(flash_attention_bwd.cu) for other 16-bit shapes, "
-                     "their SIMT kernels for fp32",
+         "dispatch": "sm90 (one fused wgmma + TMA kernel, dQ added as "
+                     "fixed-point integers, with a maxima kernel, a "
+                     "statistics set-up and a dq pass); K3's and K4's "
+                     "mma.sync kernels (flash_attention_bwd.cu) for other "
+                     "16-bit shapes, their SIMT kernels for fp32",
          "mma_ms": train_rows["K3+K4"][0]["mma_ms"],
          "dq_run_to_run_rel_l2": train_rows["K3+K4"][0][
              "dq_run_to_run_rel_l2"],
+         "dq_order": dq_order,
          "launches_by_route": train["bwd_launches_by_route"],
          "kernel_resources": [
              k for k in resources["flash_attention_bwd_sm90"]["kernels"]
@@ -1766,6 +2204,8 @@ def main() -> int:
                         "main_path_launches": on_paths, "note": note})
     log(json.dumps({"main_path": main, "unet_path_check": path,
                     "perception": perception, "photo_generate": photo,
+                    "dq_order": dq_order, "load": loaded, "infer": inferred,
+                    "samplers": samplers, "serve": served,
                     "tiny_card_vs_cpu": tiny, "unet_profile": profile,
                     "training_path": train, "train_profile": train_profile,
                     "training_unet_path_check": train_path,

@@ -8,6 +8,8 @@ the FuseModule scatter) match the reference exactly.
 from __future__ import annotations
 
 import functools
+import json
+import os
 import re
 import unicodedata
 from typing import Dict, List
@@ -68,8 +70,8 @@ def _basic_clean(text: str) -> str:
 
 class CLIPBPETokenizer:
     """HF CLIPTokenizer-compatible interface: encode/add_tokens/
-    convert_tokens_to_ids/model_max_length/pad_token_id. Loading a
-    vocab.json/merges.txt dump comes with checkpoint loading."""
+    convert_tokens_to_ids/model_max_length/pad_token_id; `from_pretrained`
+    reads a vocab.json/merges.txt dump."""
 
     def __init__(self, vocab: Dict[str, int], merges: List[str],
                  model_max_length: int = 77):
@@ -86,6 +88,22 @@ class CLIPBPETokenizer:
         self.unk_token_id = self.eos_token_id
         self._added: Dict[str, int] = {}
         self._added_re = None
+
+    @classmethod
+    def from_pretrained(cls, path: str, model_max_length: int = 77):
+        """path: a diffusers `tokenizer/` dump (vocab.json + merges.txt) or
+        a directory containing one (JAX package's
+        CLIPBPETokenizer.from_pretrained). SD1.5's CLIP-L pads with eos, so
+        a declared pad token is not read (SDXL's tokenizer_2 is not
+        ported)."""
+        if os.path.isdir(os.path.join(path, "tokenizer")):
+            path = os.path.join(path, "tokenizer")
+        with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
+            vocab = json.load(f)
+        with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
+            # first line is the "#version" header; HF caps the merge count
+            merges = f.read().strip().split("\n")[1: 49152 - 256 - 2 + 1]
+        return cls(vocab, merges, model_max_length=model_max_length)
 
     # -- added tokens (the <|image|>/<|facial|> triggers) ----------------
 

@@ -75,10 +75,16 @@ def masks_for_unique_values(parsing_map: np.ndarray) -> Dict[str, np.ndarray]:
 
 def fetch_mask_raw_image(raw_image: np.ndarray,
                          mask: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 image x binary mask composite on black
-    (reference functions.py:326-331). The mask must have the image's size:
-    masks come from a parsing map of the face image itself."""
+    """(H, W, 3) uint8 image x mask composite on black (reference
+    functions.py:326-331, PIL's Image.composite): the mask is first resized
+    to the image (bicubic, as PIL's default) when the parsing map has
+    another size, then each pixel is image * mask / 255, rounded as PIL
+    does."""
+    from ..utils.image import resize_uint8
+
     if mask.shape != raw_image.shape[:2]:
-        raise ValueError(f"mask {mask.shape} does not match image "
-                         f"{raw_image.shape[:2]}")
-    return np.where(mask[..., None] >= 128, raw_image, 0).astype(np.uint8)
+        mask = resize_uint8(np.asarray(mask, np.uint8)[..., None],
+                            *raw_image.shape[:2])[..., 0]
+    t = raw_image.astype(np.uint32) * np.asarray(mask, np.uint32)[..., None]
+    t += 128
+    return ((t + (t >> 8)) >> 8).astype(np.uint8)

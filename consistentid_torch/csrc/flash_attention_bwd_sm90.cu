@@ -21,7 +21,8 @@
 // per score at 16 per clock per SM (0.0688 ms at level 0). The bytes of
 // q, k, v, dO, lse, delta in and dq, dk, dv out are two orders below. The
 // implementation adds the dQ reduction: Sk / 128 partial sums of every dq
-// row, 403 MB of fp32 at level 0 with the depth padded to 48 (see below).
+// row, 806 MB of 64-bit integers at level 0 with the depth padded to 48
+// (see below).
 //
 // Design, and what it answers:
 //   - One CTA per (b*h, 128 keys): two warpgroups of 64 keys (256 threads),
@@ -52,13 +53,35 @@
 //     computes half the depth of the tile's partial dS K (wgmma with A = dS
 //     and B = K both MN-major; at depth 80 both compute 48 columns, as a
 //     half would start inside a 32-byte swizzle span), stages its half in
-//     shared memory in accumulator order and adds it into an fp32 workspace
-//     with one bulk reduce (cp.reduce.async.bulk .add.f32, done in L2). The
-//     workspace holds each (b*h, q tile) as 64 x depth floats in that
-//     order; a pass in this file then scales it by s, puts it back in (row,
-//     column) order and casts it to q's dtype. The sums of the key blocks
-//     arrive in no fixed order, so dq may differ from run to run in its
-//     last bits (dk and dv do not).
+//     shared memory in accumulator order and adds it into a workspace with
+//     one bulk reduce (cp.reduce.async.bulk, done in L2). The workspace
+//     holds each (b*h, q tile) as 64 x depth words in that order; a pass in
+//     this file then scales it by s, puts it back in (row, column) order
+//     and casts it to q's dtype.
+//   - dQ does not depend on the order the key blocks' sums arrive in, as
+//     the reference's does not (one program sums the key blocks of a q
+//     tile in order): the partial sums are added as 64-bit fixed-point
+//     integers (.add.u64), and integer addition is exact, so the workspace
+//     ends as the same bits whatever the order, equal to the sum in any
+//     fixed order. The unit of head b*h is a power of two, 2^(e - 58) with
+//     2^e > B = 4 d max|dO| max|K| max|V| (over the head) >= 2 |dq| and
+//     every partial of it: dS_ij = P_ij (dP_ij - delta_i), |dP_ij| and
+//     |delta_i| <= |dO_i| |V_j| <= d max|dO| max|V|, sum_j P_ij = 1. So a
+//     partial rounds to within B 2^-58 and fits in 2^57 units, and a row's
+//     sum over Sk / 128 key blocks is within Sk / 128 B 2^-58 of exact:
+//     below fp32's rounding of the same sum unless B overstates that row
+//     of dq by more than 2^30 (the rows of a head whose dO is that much
+//     smaller than its largest). The set-up kernel takes the maxima in
+//     blocks beside its other work, and each CTA reduces its head's
+//     (maxima are exact, in no order either); a head with a non-finite
+//     bound gets NaN.
+//     The 64-bit words double the reduce's bytes (25 MB of workspace at
+//     level 0, still in the L2), and the conversions run beside the exps.
+//     (A semaphore per q tile, key blocks adding fp32 in turn, kept the
+//     reference's kind of order but was far slower: every CTA waits for
+//     the one before it at every tile, PERF.md.) kFixedDq =
+//     false, kept for the variants script, adds fp32 in arrival order,
+//     whose last bits may change from run to run.
 //   - Overlap: the next tile's S^T and dP^T are issued right behind this
 //     tile's dV, dK and dQ products, into registers dead since the packing,
 //     so the tensor cores have them queued while the warpgroup stages dQ.
@@ -75,14 +98,17 @@
 // reduction's share: PERF.md, scripts/flash_bwd_sm90_variants.py.
 //
 // C interface: cid_flash_attention_backward_sm90(...) launches three kernels
-// on the given stream (the statistics and workspace set-up, the fused
-// kernel, the dq pass) and returns a cudaError_t, cudaErrorInvalidValue for
+// on the given stream (the set-up: statistics, the dq workspace zeroed and
+// the maxima of dO, K and V in blocks; the fused kernel; the dq pass) and
+// returns a cudaError_t, cudaErrorInvalidValue for
 // what it does not take: dtype other than bf16 (1) or fp16 (2), d not a
 // multiple of 8 in 8..128, a pointer off 16 bytes, a scale that is not
-// positive. The caller allocates the fp32 workspace
-// (bh * ceil(sq / 64) * (64 * padded depth + 128) floats).
+// positive. The caller allocates the workspace of
+// bh * ceil(sq / 64) * (128 * padded depth + 128) + 97 * bh floats.
 
+#include <cfloat>
 #include <algorithm>
+#include <type_traits>
 
 #include "sm90_common.cuh"
 
@@ -92,6 +118,16 @@ constexpr int kBwdBlockQ = 64;   // q rows per tile of the ring
 constexpr int kBwdBlockK = 128;  // keys per CTA: two warpgroups of 64
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kPassThreads = 256;  // the set-up kernel and the dq pass
+constexpr int kPassWarps = kPassThreads / 32;
+// dQ's partial sums as fixed-point integers (see the header)
+constexpr bool kFixedDq = true;
+using DqWord = std::conditional_t<kFixedDq, unsigned long long, float>;
+using DqPair = std::conditional_t<kFixedDq, ulonglong2, float2>;
+// per q row of a tile: lse * log2(e), delta
+constexpr int kStats = 2;
+// blocks per head of the maxima kernel
+constexpr int kMaxBlocks = 32;
 
 // The shared-memory layout at padded depth DP: the swizzle span of the K/V
 // and Q/dO tiles (as the forward's), byte offsets in the CTA's dynamic
@@ -112,9 +148,10 @@ struct BwdLayout {
   static constexpr int kStages = DP == 128 ? 2 : 4;
   static constexpr int kKBytes = kBoxes * kBwdBlockK * kRowBytes;   // K or V
   static constexpr int kTileBytes = kBoxes * kBwdBlockQ * kRowBytes;  // Q, dO
-  static constexpr int kStatBytes = 2 * kBwdBlockQ * 4;  // lse2, delta
+  static constexpr int kStatBytes = kStats * kBwdBlockQ * 4;
   static constexpr int kDsBytes = kBwdBlockK * 128;  // dS^T, keys x 64 q
-  static constexpr int kDqHalfBytes = kBwdBlockQ * DP / 2 * 4;
+  static constexpr int kDqHalfBytes =
+      kBwdBlockQ * DP / 2 * static_cast<int>(sizeof(DqWord));
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKBytes;
   static constexpr int kRing = kV + kKBytes;  // stage st: Q, then dO
@@ -219,15 +256,57 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// Add `bytes` of fp32 from shared memory into global memory (in L2).
-__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
+// Add `bytes` of dQ words from shared memory into global memory (in L2).
+__device__ __forceinline__ void bulk_reduce_add(DqWord* dst, uint32_t src,
                                                 uint32_t bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
-      "[%0], [%1], %2;\n" ::"l"(dst),
-      "r"(src), "r"(bytes)
-      : "memory");
+  if constexpr (kFixedDq) {
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u64 "
+        "[%0], [%1], %2;\n" ::"l"(dst),
+        "r"(src), "r"(bytes)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+        "[%0], [%1], %2;\n" ::"l"(dst),
+        "r"(src), "r"(bytes)
+        : "memory");
+  }
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// The fixed-point scale of a head (its unit's inverse): 2^(58 - e), 2^e >
+// the bound B (see the header); NaN when B is not finite.
+__device__ __forceinline__ float dq_scale(float bound) {
+  if (!(bound <= FLT_MAX)) return __int_as_float(0x7fc00000);
+  int e;
+  frexpf(bound, &e);  // bound < 2^e (e = 0 for 0)
+  return ldexpf(1.0f, min(58 - e, 126));
+}
+
+// A pair of dQ partials as words of the workspace: in units of 1 / f, or
+// as they are (fp32); and back (unit = 1 / f).
+__device__ __forceinline__ void to_words(ulonglong2& out, float x, float y,
+                                         float f) {
+  out = make_ulonglong2(static_cast<unsigned long long>(__float2ll_rn(x * f)),
+                        static_cast<unsigned long long>(__float2ll_rn(y * f)));
+}
+__device__ __forceinline__ void to_words(float2& out, float x, float y,
+                                         float) {
+  out = make_float2(x, y);
+}
+__device__ __forceinline__ float2 from_words(const ulonglong2& w,
+                                             double unit) {
+  return make_float2(static_cast<float>(static_cast<long long>(w.x) * unit),
+                     static_cast<float>(static_cast<long long>(w.y) * unit));
+}
+__device__ __forceinline__ float2 from_words(const float2& w, double) {
+  return w;
 }
 
 // This thread's bulk operations have finished reading shared memory.
@@ -299,14 +378,15 @@ __device__ __forceinline__ void issue_dq(float (&dq)[BwdLayout<DP>::kDqN / 2],
 }
 
 // Pairs [SKIP, SKIP + PAIRS / 2) of n8 blocks of a dQ accumulator, both
-// row halves each, into the staging: pair i of thread tid at 2 (128 i + tid).
+// row halves each, into the staging as dQ words: pair i of thread tid at
+// 128 i + tid, f the head's fixed-point scale.
 template <int SKIP, int PAIRS, int N>
-__device__ __forceinline__ void stage_dq(float2* stage, const float (&dq)[N],
-                                         int tid) {
+__device__ __forceinline__ void stage_dq(DqPair* stage, const float (&dq)[N],
+                                         int tid, float f) {
 #pragma unroll
   for (int i = 0; i < PAIRS; ++i) {
     const int r = 2 * (i / 2 + SKIP) + i % 2;  // pair of the accumulator
-    stage[128 * i + tid] = make_float2(dq[2 * r], dq[2 * r + 1]);
+    to_words(stage[128 * i + tid], dq[2 * r], dq[2 * r + 1], f);
   }
 }
 
@@ -330,7 +410,7 @@ __device__ __forceinline__ void load_q_tile(const CUtensorMap* q_map,
              tile * kBwdBlockQ, bh);
   }
   bulk_load(stat_s + st * L::kStatBytes,
-            stats + (static_cast<int64_t>(bh) * q_tiles + tile) * 2 *
+            stats + (static_cast<int64_t>(bh) * q_tiles + tile) * kStats *
                         kBwdBlockQ,
             L::kStatBytes, bar);
 }
@@ -342,7 +422,9 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const __grid_constant__ CUtensorMap do_map,
                       const float* __restrict__ stats,
-                      float* __restrict__ dq_acc, T* __restrict__ dk,
+                      const unsigned* __restrict__ part,
+                      float* __restrict__ head_scale,
+                      DqWord* __restrict__ dq_acc, T* __restrict__ dk,
                       T* __restrict__ dv, int sk, int d, int q_tiles,
                       int k_blocks, float scale_log2, float sm_scale) {
   using L = BwdLayout<DP>;
@@ -407,8 +489,30 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   // this warpgroup's columns of the dQ product, its half of the staging
   const int dq_col0 = wg == 0 ? 0 : L::kDqCol1;
   const uint32_t stage_s = base + L::kDq + wg * L::kDqHalfBytes;
-  float2* const stage = reinterpret_cast<float2*>(smem + L::kDq +
+  DqPair* const stage = reinterpret_cast<DqPair*>(smem + L::kDq +
                                                   wg * L::kDqHalfBytes);
+  // the head's fixed-point scale, from the set-up's block maxima; key
+  // block 0 keeps it for the dq pass
+  __shared__ unsigned head_part[3 * kMaxBlocks];
+  __shared__ float head_f;
+  if (kFixedDq) {
+    if (threadIdx.x < 3 * kMaxBlocks) {
+      head_part[threadIdx.x] = part[bh * 3 * kMaxBlocks + threadIdx.x];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned m[3] = {0u, 0u, 0u};
+      for (int b = 0; b < kMaxBlocks; ++b) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) m[j] = max(m[j], head_part[3 * b + j]);
+      }
+      head_f = dq_scale(4.0f * static_cast<float>(d) * __uint_as_float(m[0]) *
+                        __uint_as_float(m[1]) * __uint_as_float(m[2]));
+      if (kb == 0) head_scale[bh] = head_f;
+    }
+    __syncthreads();
+  }
+  const float dq_f = kFixedDq ? head_f : 1.0f;
 
   // S^T = K Q^T and dP^T = V dO^T of the tile in ring stage st
   auto issue_scores = [&](float (&s)[32], float (&dp)[32], int st) {
@@ -526,9 +630,9 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     // this warpgroup's DP / 2 columns of the tile's dQ, staged in
     // accumulator order, then added into the workspace
     if (wg == 0) {
-      stage_dq<0, DP / 8>(stage, dq, tid);
+      stage_dq<0, DP / 8>(stage, dq, tid, dq_f);
     } else {
-      stage_dq<L::kDqSkip, DP / 8>(stage, dq, tid);
+      stage_dq<L::kDqSkip, DP / 8>(stage, dq, tid, dq_f);
     }
     fence_async_shared();
     named_barrier(2 + wg, 128);  // the staging is written
@@ -567,40 +671,103 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The fused kernel's inputs beside q, k, v and dO: per (b*h, q tile) the
-// 64 rows' lse * log2(e) (+inf past sq, so P = 0 there) and delta (0 past
-// sq); and the dq workspace set to zero.
-__global__ void bwd_prep_kernel(const float* __restrict__ lse,
-                                const float* __restrict__ delta,
-                                float* __restrict__ stats,
-                                float4* __restrict__ dq_acc, int sq,
-                                int q_tiles, int64_t rows, int64_t acc_vec4) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < rows; i += stride) {
-    const int64_t bh = i / (static_cast<int64_t>(q_tiles) * kBwdBlockQ);
+// max|.| over 8 elements of T in 16 bytes, as fp32 bits (a NaN, its sign
+// cleared, compares above every number).
+template <typename T>
+__device__ __forceinline__ unsigned max_abs8(const uint4& w, unsigned m) {
+  const T* x = reinterpret_cast<const T*>(&w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m = max(m, __float_as_uint(fabsf(to_f32(x[i]))));
+  return m;
+}
+
+// Block `block` of head `head`: max|dO|, max|K|, max|V| over its share
+// of the head's elements (16 bytes a load), as fp32 bits into
+// part[(head * kMaxBlocks + block) * 3 + {0, 1, 2}].
+template <typename T>
+__device__ void block_maxima(const T* __restrict__ dout,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             unsigned* __restrict__ part, int64_t q_vec,
+                             int64_t k_vec, int head, int block) {
+  const uint4* q4 = reinterpret_cast<const uint4*>(dout) + head * q_vec;
+  const uint4* k4 = reinterpret_cast<const uint4*>(k) + head * k_vec;
+  const uint4* v4 = reinterpret_cast<const uint4*>(v) + head * k_vec;
+  const int64_t start = block * static_cast<int64_t>(blockDim.x) +
+                        threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(kMaxBlocks) * blockDim.x;
+  unsigned m[3] = {0u, 0u, 0u};
+  for (int64_t i = start; i < q_vec; i += stride) {
+    m[0] = max_abs8<T>(q4[i], m[0]);
+  }
+  for (int64_t i = start; i < k_vec; i += stride) {
+    m[1] = max_abs8<T>(k4[i], m[1]);
+    m[2] = max_abs8<T>(v4[i], m[2]);
+  }
+  __shared__ unsigned warp_max[3][kPassWarps];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    m[j] = __reduce_max_sync(0xffffffffu, m[j]);
+    if (threadIdx.x % 32 == 0) warp_max[j][threadIdx.x / 32] = m[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    unsigned r = 0u;
+    for (int w = 0; w < kPassWarps; ++w) r = max(r, warp_max[threadIdx.x][w]);
+    part[(head * kMaxBlocks + block) * 3 + threadIdx.x] = r;
+  }
+}
+
+// The fused kernel's inputs beside q, k, v and dO, from one launch: blocks
+// [0, prep_blocks) stage per (b*h, q tile) the 64 rows' lse * log2(e)
+// (+inf past sq, so P = 0 there) and delta (0 past sq) and set the dq
+// workspace to zero; each of the kMaxBlocks blocks per head after them
+// takes its share of the maxima (`block_maxima`), which the fused kernel
+// reduces to the head's fixed-point scale.
+template <typename T>
+__global__ void bwd_setup_kernel(const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 const T* __restrict__ dout,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 unsigned* __restrict__ part,
+                                 float* __restrict__ stats,
+                                 float4* __restrict__ dq_acc, int sq,
+                                 int q_tiles, int prep_blocks, int64_t rows,
+                                 int64_t acc_vec4, int64_t q_vec,
+                                 int64_t k_vec) {
+  if (static_cast<int>(blockIdx.x) >= prep_blocks) {
+    const int b = blockIdx.x - prep_blocks;
+    block_maxima<T>(dout, k, v, part, q_vec, k_vec, b / kMaxBlocks,
+                    b % kMaxBlocks);
+    return;
+  }
+  const int64_t stride = static_cast<int64_t>(prep_blocks) * blockDim.x;
+  const int64_t first = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                        threadIdx.x;
+  for (int64_t i = first; i < rows; i += stride) {
+    const int64_t h = i / (static_cast<int64_t>(q_tiles) * kBwdBlockQ);
     const int r = static_cast<int>(i % (q_tiles * kBwdBlockQ));
     const bool in = r < sq;
-    const int64_t src = bh * sq + r;
-    float* out = stats + (bh * q_tiles + r / kBwdBlockQ) * 2 * kBwdBlockQ +
+    const int64_t src = h * sq + r;
+    float* out = stats +
+                 (h * q_tiles + r / kBwdBlockQ) * kStats * kBwdBlockQ +
                  r % kBwdBlockQ;
     out[0] = in ? lse[src] * kLog2e : INFINITY;
     out[kBwdBlockQ] = in ? delta[src] : 0.0f;
   }
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < acc_vec4; i += stride) {
+  for (int64_t i = first; i < acc_vec4; i += stride) {
     dq_acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// dq = s * the workspace, from its accumulator order (pair i of thread t of
-// warpgroup w's half of a (b*h, q tile) block: row 16 (t / 32) + (t % 32) /
-// 4 + 8 (i % 2), column w DP / 2 + 8 (i / 2) + 2 (t % 4)) to (row, column)
-// order, cast to T.
+// dq = s * the workspace (in the head's fixed-point unit), from its
+// accumulator order (pair i of thread t of warpgroup w's half of a (b*h, q
+// tile) block: row 16 (t / 32) + (t % 32) / 4 + 8 (i % 2), column w DP / 2
+// + 8 (i / 2) + 2 (t % 4)) to (row, column) order, cast to T.
 template <typename T, int DP>
-__global__ void dq_convert_kernel(const float2* __restrict__ acc,
+__global__ void dq_convert_kernel(const DqPair* __restrict__ acc,
+                                  const float* __restrict__ head_scale,
                                   T* __restrict__ dq, int sq, int d,
                                   int q_tiles, float sm_scale, int64_t pairs) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -617,7 +784,8 @@ __global__ void dq_convert_kernel(const float2* __restrict__ acc,
                     8 * (i % 2);
     const int col = w * (DP / 2) + 8 * (i / 2) + 2 * (t % 4);
     if (row < sq && col < d) {
-      const float2 v = acc[p];
+      const double unit = kFixedDq ? 1.0 / head_scale[bh] : 1.0;
+      const float2 v = from_words(acc[p], unit);
       *reinterpret_cast<uint32_t*>(dq + (bh * sq + row) * d + col) =
           TypeOps<T>::pack(v.x * sm_scale, v.y * sm_scale);
     }
@@ -636,7 +804,6 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-constexpr int kPassThreads = 256;
 
 int pass_blocks(int64_t n) {
   return static_cast<int>(
@@ -660,14 +827,25 @@ int launch_bwd_sm90(const BwdArgs& a) {
                                dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the workspace: dq partial sums, then the statistics
+  // the workspace: dq partial sums (64-bit words, room for them either
+  // way), the statistics, the blocks' maxima, the heads' scales
   const int64_t blocks = static_cast<int64_t>(a.bh) * q_tiles;
-  float* dq_acc = a.workspace;
-  float* stats = a.workspace + blocks * kBwdBlockQ * DP;
+  DqWord* dq_acc = reinterpret_cast<DqWord*>(a.workspace);
+  float* stats = a.workspace + blocks * kBwdBlockQ * DP * 2;
+  unsigned* part =
+      reinterpret_cast<unsigned*>(stats + blocks * kStats * kBwdBlockQ);
+  float* head_scale = reinterpret_cast<float*>(part) +
+                      static_cast<int64_t>(a.bh) * kMaxBlocks * 3;
   const int64_t rows = blocks * kBwdBlockQ;
-  bwd_prep_kernel<<<pass_blocks(rows), kPassThreads, 0, a.stream>>>(
-      a.lse, a.delta, stats, reinterpret_cast<float4*>(dq_acc), a.sq, q_tiles,
-      rows, rows * DP / 4);
+  const int prep_blocks = pass_blocks(rows);
+  bwd_setup_kernel<T><<<prep_blocks + a.bh * kMaxBlocks, kPassThreads, 0,
+                        a.stream>>>(
+      a.lse, a.delta, static_cast<const T*>(a.dout),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), part, stats,
+      reinterpret_cast<float4*>(dq_acc), a.sq, q_tiles, prep_blocks, rows,
+      rows * DP * static_cast<int64_t>(sizeof(DqWord)) / 16,
+      static_cast<int64_t>(a.sq) * a.d / 8,
+      static_cast<int64_t>(a.sk) * a.d / 8);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -677,17 +855,17 @@ int launch_bwd_sm90(const BwdArgs& a) {
                              L::kAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<k_blocks * a.bh, kBwdThreads, L::kAlloc, a.stream>>>(
-      qm, km, vm, dom, stats, dq_acc, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.sk, a.d, q_tiles, k_blocks,
-      a.sm_scale * kLog2e, a.sm_scale);
+      qm, km, vm, dom, stats, part, head_scale, dq_acc,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sk, a.d, q_tiles,
+      k_blocks, a.sm_scale * kLog2e, a.sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int64_t pairs = rows * DP / 2;
   dq_convert_kernel<T, DP><<<pass_blocks(pairs), kPassThreads, 0,
                              a.stream>>>(
-      reinterpret_cast<const float2*>(dq_acc), static_cast<T*>(a.dq), a.sq,
-      a.d, q_tiles, a.sm_scale, pairs);
+      reinterpret_cast<const DqPair*>(dq_acc), head_scale,
+      static_cast<T*>(a.dq), a.sq, a.d, q_tiles, a.sm_scale, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -702,9 +880,9 @@ int launch_depth(const BwdArgs& a) {
 }  // namespace
 
 // dtype: 1 = bfloat16, 2 = float16. q, dout, dq contiguous (bh, sq, d); k,
-// v, dk, dv (bh, sk, d); lse and delta (bh, sq) fp32; workspace fp32 of
-// bh * ceil(sq / 64) * (64 * padded depth + 128) floats (padded depth 48,
-// 64, 80 or 128: the first that holds d), overwritten. Returns a
+// v, dk, dv (bh, sk, d); lse and delta (bh, sq) fp32; workspace of
+// bh * ceil(sq / 64) * (128 * padded depth + 128) + 97 * bh floats (padded
+// depth 48, 64, 80 or 128: the first that holds d), overwritten. Returns a
 // cudaError_t.
 extern "C" int cid_flash_attention_backward_sm90(
     const void* q, const void* k, const void* v, const void* dout,

@@ -1,0 +1,137 @@
+"""Write a port bundle and perception models as a reference-layout
+checkpoint set: the files `pipelines.loading.load_sd15_consistentid` and
+`load_face_stack` read (diffusers SD1.5 dump, image encoder, the
+ConsistentID .bin, BiSeNet .pth, iresnet .pt, SCRFD .onnx, the safety
+checker and a tokenizer vocab). The trees come from
+`io.from_jax.tree_from_module` and go through the exporters of
+io/export_backbones.py and io/convert.py, the inverse of the maps the
+loader reads with, so loading the set gives the modules' weights back
+(after the cast to `dtype`, fp16 as diffusers dumps ship)."""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .convert import export_consistentid_checkpoint
+from .export_backbones import (bisenet_to_torch, clip_text_to_hf,
+                               clip_vision_to_hf, iresnet_to_torch,
+                               safety_checker_to_hf, scrfd_to_torch,
+                               unet_to_diffusers, vae_to_diffusers)
+from .from_jax import tree_from_module
+from .onnx_reader import write_onnx_initializers
+from .safetensors_reader import write_safetensors
+
+
+def _cast(sd: Mapping[str, np.ndarray], dtype) -> Dict[str, np.ndarray]:
+    return {k: np.ascontiguousarray(np.asarray(v).astype(dtype))
+            for k, v in sd.items()}
+
+
+def _depth(tree: Mapping) -> int:
+    return sum(1 for k in tree if k.endswith("_attn"))
+
+
+def write_reference_checkpoints(
+        outdir: str, bundle: nn.Module,
+        parser: Optional[nn.Module] = None,
+        embedder: Optional[nn.Module] = None,
+        detector: Optional[nn.Module] = None,
+        safety_checker: Optional[nn.Module] = None,
+        vocab: Optional[Mapping[str, int]] = None,
+        dtype=np.float16) -> Tuple[Dict[str, str], int]:
+    """Write the set under `outdir`; returns ({name: path} in the
+    loaders' argument names, bytes written). bundle: an SD15Bundle; the
+    perception models are the port's BiSeNet, IResNet, SCRFD and
+    SafetyChecker modules; vocab: a CLIP BPE vocab (no merges)."""
+    base = os.path.join(outdir, "sd15")
+    paths = {"base": base}
+    written = 0
+
+    def save_st(rel: str, sd: Mapping[str, np.ndarray]) -> str:
+        nonlocal written
+        path = os.path.join(outdir, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        written += write_safetensors(path, _cast(sd, dtype))
+        return path
+
+    def save_torch(rel: str, sd: Mapping) -> str:
+        nonlocal written
+
+        def tensors(d):
+            return {k: tensors(v) if isinstance(v, Mapping)
+                    else torch.from_numpy(np.asarray(v).astype(dtype))
+                    for k, v in d.items()}
+        path = os.path.join(outdir, rel)
+        torch.save(tensors(sd), path)
+        written += os.path.getsize(path)
+        return path
+
+    unet, _ = tree_from_module(bundle.unet)
+    save_st("sd15/unet/diffusion_pytorch_model.safetensors",
+            unet_to_diffusers(unet, bundle.unet_config))
+    vae, _ = tree_from_module(bundle.vae)
+    save_st("sd15/vae/diffusion_pytorch_model.safetensors",
+            vae_to_diffusers(vae, bundle.vae_config))
+    del vae
+    save_st("sd15/text_encoder/model.safetensors", clip_text_to_hf(
+        tree_from_module(bundle.text_encoder)[0], bundle.text_config))
+    paths["image_encoder_path"] = save_st(
+        "image_encoder.safetensors", clip_vision_to_hf(
+            tree_from_module(bundle.image_encoder)[0],
+            bundle.vision_config))
+    adapters = {"unet": unet, "proj": tree_from_module(bundle.proj)[0],
+                "facial_encoder": tree_from_module(bundle.facial_encoder)[0]}
+    paths["consistentid_path"] = save_torch(
+        "ConsistentID-v1.bin", export_consistentid_checkpoint(
+            adapters, bundle.unet_config,
+            proj_depth=_depth(adapters["proj"]["perceiver_resampler"]),
+            facial_depth=_depth(
+                adapters["facial_encoder"]["visual_projection"])))
+    del unet, adapters
+
+    if parser is not None:
+        paths["bisenet_path"] = save_torch(
+            "face_parsing.pth", bisenet_to_torch(*tree_from_module(parser)))
+    if embedder is not None:
+        from ..models.arcface import iresnet_arch_from_params
+        layers, _, input_size = iresnet_arch_from_params(
+            embedder.state_dict())
+        channels = embedder.bn2.num_features
+        params, stats = tree_from_module(embedder,
+                                         flatten_nhwc={"fc": channels})
+        paths["arcface_path"] = save_torch(
+            "arcface.pt", iresnet_to_torch(params, stats, layers=layers,
+                                           spatial=input_size // 16))
+    if detector is not None:
+        path = os.path.join(outdir, "scrfd.onnx")
+        write_onnx_initializers(path, _cast(scrfd_to_torch(
+            *tree_from_module(detector), detector.cfg), dtype))
+        written += os.path.getsize(path)
+        paths["scrfd_path"] = path
+    if safety_checker is not None:
+        vc = safety_checker.vision_config
+        save_st("sd15/safety_checker/model.safetensors",
+                safety_checker_to_hf(tree_from_module(safety_checker)[0],
+                                     vc))
+        with open(os.path.join(base, "safety_checker", "config.json"),
+                  "w") as f:
+            json.dump({"vision_config": {
+                "image_size": vc.image_size, "patch_size": vc.patch_size,
+                "hidden_size": vc.hidden_size,
+                "intermediate_size": vc.intermediate_size,
+                "num_hidden_layers": vc.num_layers,
+                "num_attention_heads": vc.num_heads,
+                "hidden_act": vc.hidden_act}}, f)
+    if vocab is not None:
+        tok_dir = os.path.join(base, "tokenizer")
+        os.makedirs(tok_dir, exist_ok=True)
+        with open(os.path.join(tok_dir, "vocab.json"), "w") as f:
+            json.dump(dict(vocab), f)
+        with open(os.path.join(tok_dir, "merges.txt"), "w") as f:
+            f.write("#version: 0.2\n")
+    return paths, written

@@ -13,14 +13,18 @@ change:
 `state_from_jax` takes flax variables {"params": ..., "batch_stats": ...}
 and adds the BatchNorm running statistics (mean -> running_mean, var ->
 running_var, and a zero num_batches_tracked). Both need numpy only: the
-caller converts device arrays first.
+caller converts device arrays first. The checkpoint loaders
+(pipelines/loading.py) use the same two on the trees that io/convert*.py
+read off reference files. `tree_from_module` is their inverse: a port
+module's weights as such a tree, for io/export_backbones.py to write.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -88,3 +92,58 @@ def state_from_jax(variables: Mapping,
         key = f"{name}.weight"
         state[key] = permute_nhwc_flatten(state[key], channels)
     return state
+
+
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d)
+
+
+def _leaf_from_param(module: nn.Module, leaf: str, t: torch.Tensor):
+    """(flax leaf name, numpy array) of one parameter of `module`: the
+    inverse of `params_from_jax`'s leaf map."""
+    a = t.detach().float().cpu().numpy() if t.is_floating_point() \
+        else t.detach().cpu().numpy()
+    if leaf != "weight":
+        return leaf, a
+    if isinstance(module, nn.Embedding):
+        return "embedding", a
+    if type(module).__name__ == "PReLU":
+        return "alpha", a
+    if isinstance(module, _NORMS) or a.ndim == 1:
+        return "scale", a
+    if a.ndim == 4:
+        return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if a.ndim == 2:
+        return "kernel", np.ascontiguousarray(a.T)
+    raise ValueError(f"{type(module).__name__}.weight of rank {a.ndim}")
+
+
+def tree_from_module(module: nn.Module,
+                     flatten_nhwc: Optional[Mapping[str, int]] = None
+                     ) -> Tuple[Dict, Dict]:
+    """A port module's weights as flax-shaped (params, batch_stats) trees of
+    fp32 numpy arrays: the inverse of `state_from_jax`, including its
+    `flatten_nhwc` permutation (given the same names)."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def node(tree: Dict, name: str) -> Dict:
+        for part in name.split(".") if name else ():
+            tree = tree.setdefault(part, {})
+        return tree
+
+    for name, mod in module.named_modules():
+        for leaf, t in mod.named_parameters(recurse=False):
+            key, a = _leaf_from_param(mod, leaf, t)
+            if key == "kernel" and name in (flatten_nhwc or {}):
+                c = flatten_nhwc[name]
+                n_in, out_dim = a.shape
+                spatial = int(round((n_in // c) ** 0.5))
+                a = np.ascontiguousarray(
+                    a.reshape(c, spatial, spatial, out_dim)
+                    .transpose(1, 2, 0, 3).reshape(n_in, out_dim))
+            node(params, name)[key] = a
+        for leaf, t in mod.named_buffers(recurse=False):
+            if leaf in ("running_mean", "running_var"):
+                node(stats, name)["mean" if leaf == "running_mean"
+                                  else "var"] = t.detach().float().cpu().numpy()
+    return params, stats

@@ -170,4 +170,5 @@ def make_face_embedder(state: Mapping[str, torch.Tensor],
         return normalized_embedding(model(x)).cpu().numpy()
 
     embed.model = model
+    embed.detector = detector
     return embed

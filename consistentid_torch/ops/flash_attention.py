@@ -22,8 +22,9 @@ head_dim a multiple of 8 up to 128, 16-byte aligned tensors and a positive
 scale, which is every shape the models produce; "mma" (mma.sync) for any
 other 16-bit call; "f32" (SIMT) for fp32. The sm90 forward is
 flash_attention_sm90.cu; the sm90 backward, flash_attention_bwd_sm90.cu, is
-one fused kernel that computes dq, dk and dv together (dq through an fp32
-workspace that it adds into, so dq's last bits may vary from run to run).
+one fused kernel that computes dq, dk and dv together (dq through a
+workspace that its key blocks add into as fixed-point integers, exact in
+any order, so dq, like dk and dv, is the same bits on every run).
 The mma and f32 routes run flash_attention.cu (K1, K2) and the two kernels
 of flash_attention_bwd.cu (dq; dk and dv).
 
@@ -204,11 +205,13 @@ def _count(wrapper, route: str) -> None:
 
 
 def sm90_bwd_workspace_floats(bh: int, sq: int, head_dim: int) -> int:
-    """The fp32 workspace the sm90 backward adds dq into, beside the staged
-    lse and delta: per (b*h, 64-row q tile), 64 x padded depth partial sums
-    and 128 statistics (flash_attention_bwd_sm90.cu)."""
+    """The workspace (in fp32 words) the sm90 backward adds dq into, beside
+    its staged statistics: per (b*h, 64-row q tile), 64 x padded depth
+    64-bit fixed-point partial sums and 128 statistics (lse, delta); per
+    head, 32 blocks' maxima of dO, K and V and the fixed-point scale
+    (flash_attention_bwd_sm90.cu)."""
     q_tiles = -(-sq // 64)
-    return bh * q_tiles * (64 * sm90_padded_depth(head_dim) + 128)
+    return bh * q_tiles * (128 * sm90_padded_depth(head_dim) + 128) + 97 * bh
 
 
 def reset_launches(*wrappers) -> None:

@@ -4,8 +4,11 @@ Counterpart of the JAX package's pipelines/consistentid_sd15.py:
   host prepare (strings, masks, numpy images -> fixed-shape numpy)
     -> encode (three CLIP-L text encodes, one batched ViT-H pass over
        face + zero + 5 regions, ProjPlusModel and FacialEncoder fusion)
-    -> LoRA fold -> DDIM CFG denoise with the merge-step switch
-    -> VAE decode -> uint8.
+    -> LoRA fold -> CFG denoise with the merge-step switch (any of the five
+       samplers) -> VAE decode -> uint8 on the device.
+`generate` serves one prompt, `generate_batch` distinct requests as one
+batch (the serving path), and their `_async` variants return a callable
+that collects the images later.
 
 Face parsing labels and the ArcFace embedding are either injected or made
 from the photo by the `face_parser` and `face_embedder` hooks
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -37,8 +40,7 @@ from ..core.dtypes import resolve_device, resolve_dtype
 from ..models import (AutoencoderKL, CLIPTextEncoder, CLIPVisionEncoder, UNet,
                       fold_lora_params)
 from ..sampling import CondBranch, NoiseSchedule, denoise, make_plan
-from ..utils.image import (center_crop_mask, clip_preprocess,
-                           postprocess_to_uint8)
+from ..utils.image import center_crop_mask, clip_preprocess, to_uint8
 
 FACE_CAPTION_TEMPLATE = (
     "The person has one face, one nose, two eyes, two ears, and one mouth.")
@@ -353,11 +355,16 @@ class ConsistentIDPipeline:
     def _generate_core(self, cond: Dict[str, torch.Tensor],
                        latents: torch.Tensor, guidance_scale: float,
                        start_merge_step: int, num_steps: int, scheduler: str,
-                       ip_scale: float, lora_scale: float) -> torch.Tensor:
+                       ip_scale: float, lora_scale: float,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       sync_stages: bool = True) -> torch.Tensor:
         """Encode + denoise + decode from injected NHWC latents; returns the
-        decoded NHWC images in [-1, 1] (bundle dtype). Stage times land in
-        `last_stage_ms` (synchronising at stage boundaries on the card)."""
-        clock = _StageClock(latents.device)
+        decoded NHWC images in [-1, 1] (bundle dtype). `generator` or
+        `noise` feed an ancestral sampler (`denoise`). With `sync_stages`
+        the stage times land in `last_stage_ms` (synchronising at stage
+        boundaries on the card); without, nothing waits for the card."""
+        clock = _StageClock(latents.device, sync_stages)
         null_e, aug_e, text_e = self.encode_embeddings(cond)
         n = latents.shape[0]
         if null_e.shape[0] != n:
@@ -374,12 +381,49 @@ class ConsistentIDPipeline:
         final = denoise(unet_fn, latents,
                         CondBranch(context=text_e, null=null_e),
                         CondBranch(context=aug_e, null=null_e),
-                        plan, guidance_scale, start_merge_step)
+                        plan, guidance_scale, start_merge_step,
+                        generator=generator, noise=noise)
         clock.mark("denoise")
         images = self.bundle.vae.decode(final)
         clock.mark("decode")
         self.last_stage_ms = clock.stages
         return images
+
+    def _latent_shape(self, height: Optional[int], width: Optional[int]):
+        sf = self.bundle.vae_scale_factor
+        return ((height or self.config.height) // sf,
+                (width or self.config.width) // sf,
+                self.bundle.unet_config.sample_channels)
+
+    def _run(self, host_cond: Dict[str, np.ndarray], latents: torch.Tensor,
+             generator: torch.Generator, prepare_ms: float,
+             guidance_scale: Optional[float] = None,
+             start_merge_step: Optional[int] = None,
+             num_inference_steps: Optional[int] = None,
+             scheduler: Optional[str] = None, ip_scale: float = 1.0,
+             lora_scale: float = 1.0, sync_stages: bool = True
+             ) -> torch.Tensor:
+        cfg = self.config
+        images = self._generate_core(
+            self.device_cond(host_cond), latents,
+            guidance_scale if guidance_scale is not None
+            else cfg.guidance_scale,
+            start_merge_step if start_merge_step is not None
+            else cfg.start_merge_step,
+            num_inference_steps or cfg.num_inference_steps,
+            scheduler or cfg.scheduler, ip_scale, lora_scale,
+            generator=generator, sync_stages=sync_stages)
+        self.last_stage_ms = {"prepare": prepare_ms, **self.last_stage_ms}
+        return images
+
+    def _check(self, out: np.ndarray) -> np.ndarray:
+        """uint8 images through the safety checker when one is configured
+        (flags in `last_nsfw_flags`)."""
+        if self.safety_checker is not None:
+            t0 = time.perf_counter()
+            out, self.last_nsfw_flags = self.safety_checker(out)
+            self.last_stage_ms["safety"] = (time.perf_counter() - t0) * 1e3
+        return out
 
     def generate(
         self,
@@ -389,70 +433,197 @@ class ConsistentIDPipeline:
         seed: int = 0,
         height: Optional[int] = None,
         width: Optional[int] = None,
-        num_inference_steps: Optional[int] = None,
-        guidance_scale: Optional[float] = None,
-        start_merge_step: Optional[int] = None,
-        scheduler: Optional[str] = None,
-        ip_scale: float = 1.0,
-        lora_scale: float = 1.0,
         parsing_labels: Optional[np.ndarray] = None,
         faceid_embeds: Optional[np.ndarray] = None,
         num_images_per_prompt: int = 1,
         return_float: bool = False,
+        **kwargs,
     ):
         """uint8 (N, H, W, 3) numpy images, through the safety checker when
-        one is configured (flags in `last_nsfw_flags`); with return_float
-        the decoded [-1, 1] images as a tensor on the device instead, before
-        any checker."""
-        cfg = self.config
-        height = height or cfg.height
-        width = width or cfg.width
+        one is configured; with return_float the decoded [-1, 1] images as
+        a tensor on the device instead, before any checker. kwargs:
+        num_inference_steps, guidance_scale, start_merge_step, scheduler,
+        ip_scale, lora_scale (the config's values by default). The latents
+        and then any ancestral noise come from one generator seeded `seed`
+        on the bundle's device."""
+        return self._finish(self._generate_u8(
+            prompt, face_image, negative_prompt, seed, height, width,
+            parsing_labels, faceid_embeds, num_images_per_prompt,
+            return_float, kwargs), return_float)
+
+    def _generate_u8(self, prompt, face_image, negative_prompt, seed, height,
+                     width, parsing_labels, faceid_embeds,
+                     num_images_per_prompt, return_float, kwargs,
+                     sync_stages: bool = True) -> torch.Tensor:
         t0 = time.perf_counter()
-        cond = self.device_cond(self.prepare_conditioning(
+        cond = self.prepare_conditioning(
             prompt, face_image, parsing_labels=parsing_labels,
-            faceid_embeds=faceid_embeds, negative_prompt=negative_prompt))
+            faceid_embeds=faceid_embeds, negative_prompt=negative_prompt)
         prepare_ms = (time.perf_counter() - t0) * 1e3
-        sf = self.bundle.vae_scale_factor
         device = self.bundle.device
         gen = torch.Generator(device).manual_seed(seed)
         latents = torch.randn(
-            (num_images_per_prompt, height // sf, width // sf,
-             self.bundle.unet_config.sample_channels),
+            (num_images_per_prompt, *self._latent_shape(height, width)),
             generator=gen, device=device, dtype=torch.float32)
-        images = self._generate_core(
-            cond, latents,
-            guidance_scale if guidance_scale is not None
-            else cfg.guidance_scale,
-            start_merge_step if start_merge_step is not None
-            else cfg.start_merge_step,
-            num_inference_steps or cfg.num_inference_steps,
-            scheduler or cfg.scheduler, ip_scale, lora_scale)
-        self.last_stage_ms = {"prepare": prepare_ms, **self.last_stage_ms}
+        images = self._run(cond, latents, gen, prepare_ms,
+                           sync_stages=sync_stages, **kwargs)
+        return images if return_float else to_uint8(images)
+
+    def _finish(self, images: torch.Tensor, return_float: bool):
         if return_float:
             return images
-        out = postprocess_to_uint8(images)
-        if self.safety_checker is not None:
-            t0 = time.perf_counter()
-            out, self.last_nsfw_flags = self.safety_checker(out)
-            self.last_stage_ms["safety"] = (time.perf_counter() - t0) * 1e3
-        return out
+        return self._check(images.cpu().numpy())
+
+    def generate_batch(
+        self,
+        prompts: Sequence[str],
+        face_images: Sequence[np.ndarray],
+        negative_prompts: Optional[Sequence[str]] = None,
+        seed: int = 0,
+        seeds: Optional[Sequence[int]] = None,
+        parsing_labels_list: Optional[Sequence[np.ndarray]] = None,
+        faceid_embeds_list: Optional[Sequence[np.ndarray]] = None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        return_float: bool = False,
+        **kwargs,
+    ):
+        """Distinct requests as one batch (JAX generate_batch): each
+        request's conditioning is prepared on the host, the rows are
+        concatenated and encode + denoise + decode run once at batch
+        len(prompts). The serving path.
+
+        seeds: per-request seeds; request i's latents come from its own
+        generator seeded seeds[i], so under the ODE samplers (ddim, euler,
+        dpmpp_2m, pndm) a request's output does not depend on its batch
+        position or neighbours (up to the batch-dependent rounding of the
+        card's products). An ancestral sampler (ddpm) draws its noise for
+        the whole batch from request 0's generator, after its latents, as
+        the JAX package keys it off seeds[0]. Without seeds one generator
+        seeded `seed` draws all latents. kwargs as `generate`."""
+        return self._finish(self._batch_u8(
+            prompts, face_images, negative_prompts, seed, seeds,
+            parsing_labels_list, faceid_embeds_list, height, width,
+            return_float, kwargs), return_float)
+
+    def prepare_batch(
+        self, prompts: Sequence[str], face_images: Sequence[np.ndarray],
+        negative_prompts: Optional[Sequence[str]] = None,
+        parsing_labels_list: Optional[Sequence[np.ndarray]] = None,
+        faceid_embeds_list: Optional[Sequence[np.ndarray]] = None,
+    ) -> Dict[str, np.ndarray]:
+        """Each request's `prepare_conditioning`, the rows concatenated on
+        axis 0 (the JAX package's generate_batch)."""
+        n = len(prompts)
+        negative_prompts = negative_prompts or [""] * n
+        conds = [self.prepare_conditioning(
+            prompts[i], face_images[i],
+            parsing_labels=(parsing_labels_list[i]
+                            if parsing_labels_list is not None else None),
+            faceid_embeds=(faceid_embeds_list[i]
+                           if faceid_embeds_list is not None else None),
+            negative_prompt=negative_prompts[i]) for i in range(n)]
+        return {k: np.concatenate([c[k] for c in conds]) for k in conds[0]}
+
+    def _batch_u8(self, prompts, face_images, negative_prompts, seed, seeds,
+                  parsing_labels_list, faceid_embeds_list, height, width,
+                  return_float, kwargs,
+                  sync_stages: bool = True) -> torch.Tensor:
+        n = len(prompts)
+        t0 = time.perf_counter()
+        cond = self.prepare_batch(prompts, face_images, negative_prompts,
+                                  parsing_labels_list, faceid_embeds_list)
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        device = self.bundle.device
+        shape = self._latent_shape(height, width)
+        if seeds is not None:
+            if len(seeds) != n:
+                raise ValueError(f"{len(seeds)} seeds for {n} requests")
+            gens = [torch.Generator(device).manual_seed(int(s))
+                    for s in seeds]
+            latents = torch.stack([
+                torch.randn(shape, generator=g, device=device,
+                            dtype=torch.float32) for g in gens])
+            gen = gens[0]
+        else:
+            gen = torch.Generator(device).manual_seed(seed)
+            latents = torch.randn((n, *shape), generator=gen, device=device,
+                                  dtype=torch.float32)
+        images = self._run(cond, latents, gen, prepare_ms,
+                           sync_stages=sync_stages, **kwargs)
+        return images if return_float else to_uint8(images)
+
+    def _async(self, u8: torch.Tensor) -> Callable[[], np.ndarray]:
+        """A zero-argument callable yielding the uint8 images through the
+        safety checker. On the card the copy into pinned host memory starts
+        now, behind an event, and overlaps whatever is queued after it
+        (the JAX package's copy_to_host_async): submit request i + 1, then
+        collect request i."""
+        if u8.device.type == "cuda":
+            host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(u8, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = u8, None
+
+        def finish() -> np.ndarray:
+            if done is not None:
+                done.synchronize()
+            return self._check(host.numpy())
+
+        return finish
+
+    def generate_async(self, prompt: str, face_image: np.ndarray,
+                       negative_prompt: str = "", seed: int = 0,
+                       height: Optional[int] = None,
+                       width: Optional[int] = None,
+                       parsing_labels: Optional[np.ndarray] = None,
+                       faceid_embeds: Optional[np.ndarray] = None,
+                       num_images_per_prompt: int = 1, **kwargs):
+        """`generate`, returning a zero-argument callable that yields the
+        uint8 images (see `_async`); nothing waits for the card until it is
+        called, so `last_stage_ms` holds no device split."""
+        return self._async(self._generate_u8(
+            prompt, face_image, negative_prompt, seed, height, width,
+            parsing_labels, faceid_embeds, num_images_per_prompt, False,
+            kwargs, sync_stages=False))
+
+    def generate_batch_async(
+            self, prompts: Sequence[str], face_images: Sequence[np.ndarray],
+            negative_prompts: Optional[Sequence[str]] = None, seed: int = 0,
+            seeds: Optional[Sequence[int]] = None,
+            parsing_labels_list: Optional[Sequence[np.ndarray]] = None,
+            faceid_embeds_list: Optional[Sequence[np.ndarray]] = None,
+            height: Optional[int] = None, width: Optional[int] = None,
+            **kwargs):
+        """`generate_batch`, returning a zero-argument callable that yields
+        the uint8 batch (see `generate_async`)."""
+        return self._async(self._batch_u8(
+            prompts, face_images, negative_prompts, seed, seeds,
+            parsing_labels_list, faceid_embeds_list, height, width, False,
+            kwargs, sync_stages=False))
 
 
 class _StageClock:
     """Wall time per stage, in ms. On the card each mark synchronises, so a
-    stage's time is its device time plus its host launch overhead."""
+    stage's time is its device time plus its host launch overhead; with
+    `sync` False nothing is timed (the stages are left empty)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, sync: bool = True):
         self.cuda = device.type == "cuda"
+        self.on = sync
         self.stages: Dict[str, float] = {}
         self._sync()
         self._last = time.perf_counter()
 
     def _sync(self):
-        if self.cuda:
+        if self.cuda and self.on:
             torch.cuda.synchronize()
 
     def mark(self, name: str) -> None:
+        if not self.on:
+            return
         self._sync()
         now = time.perf_counter()
         self.stages[name] = (now - self._last) * 1e3

@@ -108,8 +108,13 @@ def center_crop_mask(mask: np.ndarray, size: int = 512) -> np.ndarray:
     return out / 255.0
 
 
-def postprocess_to_uint8(images: torch.Tensor) -> np.ndarray:
-    """[-1,1] NHWC float tensor -> uint8 numpy (clip, *255, round half to
-    even, as the JAX package's postprocess does)."""
+def to_uint8(images: torch.Tensor) -> torch.Tensor:
+    """[-1,1] NHWC float tensor -> uint8 tensor on the same device (clip,
+    *255, round half to even, as the JAX package's postprocess does)."""
     x = (images.float() / 2 + 0.5).clamp(0.0, 1.0)
-    return torch.round(x * 255).to(torch.uint8).cpu().numpy()
+    return torch.round(x * 255).to(torch.uint8)
+
+
+def postprocess_to_uint8(images: torch.Tensor) -> np.ndarray:
+    """[-1,1] NHWC float tensor -> uint8 numpy, converted on its device."""
+    return to_uint8(images).cpu().numpy()

@@ -5,23 +5,25 @@ checked and timed in one run on the card (NVIDIA H100):
     python3 scripts/flash_bwd_sm90_variants.py
 
 Each variant is consistentid_torch/csrc/flash_attention_bwd_sm90.cu with a
-few lines of its text replaced: the next tile's scores issued under a
-branch (not on the last tile), the dQ reduction taken out, the depth of
-the Q/dO ring, or, as an ablation that shows where the time goes and
-computes wrong outputs, one part of the work taken out (the exps, the dQ
-product, the dV and dK products, all but the score products). Each is built
-by nvcc for sm_90a in parallel under build/variants/, held against the
-plain backward at the kernel's own precision
-(`flash_attention_bwd_plain(..., round_to=dtype)`, relative L2 of dq, dk and
-dv) at the training shapes and at ragged shapes, and timed with
+few lines of its text replaced: dQ's partial sums added in fp32, in
+arrival order (the kernel before dQ was made deterministic), the next
+tile's scores issued under a branch (not on the last tile), the dQ
+reduction taken out, the depth of the Q/dO ring, or, as an ablation that
+shows where the time goes and computes wrong outputs, one part of the work
+taken out (the exps, the dQ product, the dV and dK products, all but the
+score products). Each is built by nvcc for sm_90a in parallel under
+build/variants/, held against the plain backward at the kernel's own
+precision (`flash_attention_bwd_plain(..., round_to=dtype)`, relative L2 of
+dq, dk and dv) at the training shapes and at ragged shapes, and timed with
 chip_smoke.py's `cuda_ms` at the training shapes beside the mma.sync pair
 (K3 then K4), SDPA's backward alone and the "bwd" bound; the variant
 without the dQ reduction computes no dq, and the ablations are timed only.
-The built kernel's time is also split by kernel (statistics set-up, fused
-kernel, dq pass) with torch.profiler, and dq is read twice for its
-run-to-run relative L2. Also prints the ptxas report of the forward's
-library (its registers must not move with the shared header). Prints one
-JSON object per line, then the card's name and power limit. Needs the card
+The built kernel's time is also split by kernel (the set-up with the
+maxima of dO, K and V, the fused kernel, the dq pass) with torch.profiler,
+and dq is read twice for its run-to-run relative L2. Also prints the ptxas
+report of the forward's library (its registers must not move with the
+shared header). Prints one JSON object per line, then the card's name and
+power limit. Needs the card
 and nvcc; exits 2 without them.
 """
 import ctypes
@@ -44,6 +46,10 @@ NO_DVDK = [(f"    issue_xt<T, DP>({acc},",
            for acc in ("dv_acc", "dk_acc")]
 NO_REDUCE = [("    if (tid == 0) {\n      bulk_reduce_add(",
               "    if (false) {\n      bulk_reduce_add(")]
+# dQ's partial sums added in fp32, in arrival order (the kernel before dQ
+# was made deterministic)
+FP32_DQ = [("constexpr bool kFixedDq = true;",
+            "constexpr bool kFixedDq = false;")]
 STAGES = "kStages = DP == 128 ? 2 : 4;"
 # the next tile's scores issued only when there is a next tile
 BRANCH = [(
@@ -61,6 +67,7 @@ BRANCH = [(
     "    }\n")]
 VARIANTS = {
     "as built": [],
+    "dQ in fp32, arrival order": FP32_DQ,
     "next scores under a branch": BRANCH,
     "no dQ reduction": NO_REDUCE,
     "3 ring stages": [(STAGES, "kStages = DP == 128 ? 2 : 3;")],
@@ -113,7 +120,8 @@ def build(name, edits):
 
 def kernel_split(call, calls: int = 10):
     """Device time per call of each kernel `call` launches, from
-    torch.profiler: the statistics set-up, the fused kernel, the dq pass."""
+    torch.profiler: the set-up (statistics and the maxima of dO, K and V),
+    the fused kernel, the dq pass."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()

@@ -4,8 +4,8 @@ instantiation, ragged tails included, the route of K1, K2 and the fused
 K3 + K4 (sm90, mma or f32) asserted from the launch counts; the autograd
 Function's gradients through the kernels against those through the plain
 versions; what the wrappers refuse; two perception networks on the card
-against the CPU. Needs
-an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it runs on a
+against the CPU; the fused backward's bits over repeated calls; the
+pipeline's async batch. Needs an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it runs on a
 machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -56,6 +56,9 @@ def cuda_generator():
     ((2, 2, 500, 128), 333, torch.bfloat16, 1e-2),
     ((2, 2, 300, 40), 50, torch.bfloat16, 1e-2),
     ((1, 1, 4096, 40), 4096, torch.bfloat16, 1e-2),
+    # the infer CLI's default 768x512 at one image: UNet levels 0 and 1
+    ((2, 8, 6144, 40), 6144, torch.bfloat16, 1e-2),
+    ((2, 8, 1536, 80), 1536, torch.bfloat16, 1e-2),
 ])
 def test_kernel_matches_plain(cuda_generator, shape, sk, dtype, atol):
     g = cuda_generator
@@ -265,6 +268,69 @@ def test_backward_kernels_match_plain(cuda_generator, shape, sk, dtype):
                                        refs, controls, same):
         assert got.dtype == dtype and got.shape == ref.shape, name
         _assert_rel_l2(got, ref, dtype, ctl, sm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("busy", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 4096, 40), (2, 8, 1024, 80)])
+def test_fused_backward_is_deterministic(cuda_generator, shape, busy):
+    """dq, dk and dv of the fused sm90 backward the same bits over 50
+    calls at the training L0 and L1 (dq's key blocks add as fixed-point
+    integers, exact in any order); with `busy`, a second stream runs
+    matmuls during the calls, so the CTAs run and finish in other orders."""
+    q, k, v, do = _inputs(cuda_generator, shape, shape[2], torch.bfloat16)
+    out, lse = port_flash.flash_attention_lse_plain(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    wrapper = port_flash.flash_attention_bwd
+    routes = dict(wrapper.launches_by_route)
+    first = wrapper(q, k, v, do, lse, delta)
+    _assert_one_launch_on(wrapper, routes, "sm90")
+    side = torch.cuda.Stream()
+    a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+    for _ in range(50):
+        if busy:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(4):
+                    a = (a @ a).clamp(-1, 1)
+        got = wrapper(q, k, v, do, lse, delta)
+        for name, g, f in zip(("dq", "dk", "dv"), got, first):
+            assert torch.equal(g, f), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_generate_batch_async_matches_generate_batch(cuda_generator):
+    """The async variant's callable yields the synchronous batch's uint8
+    images (tiny bundle on the card, 3 Euler steps, 64 px)."""
+    import numpy as np
+
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.testing import (synthetic_clip_tokenizer,
+                                            tiny_bundle)
+
+    pipe = ConsistentIDPipeline(
+        tiny_bundle(device="cuda"), synthetic_clip_tokenizer(),
+        pipeline_config=PipelineConfig(height=64, width=64,
+                                       num_inference_steps=3,
+                                       start_merge_step=1,
+                                       scheduler="euler"))
+    rng = np.random.default_rng(0)
+    faces = [rng.integers(0, 255, (64, 64, 3), np.uint8) for _ in range(2)]
+    labels = [np.zeros((64, 64), np.uint8) for _ in range(2)]
+    for lab in labels:
+        lab[8:44, 10:50] = 1
+        lab[26:31, 28:34] = 10
+    embeds = [rng.standard_normal((1, 16)).astype(np.float32)
+              for _ in range(2)]
+    kw = dict(seeds=[5, 6], parsing_labels_list=labels,
+              faceid_embeds_list=embeds)
+    prompts = ["a photo of a man", "a photo of a woman"]
+    want = pipe.generate_batch(prompts, faces, **kw)
+    got = pipe.generate_batch_async(prompts, faces, **kw)()
+    assert got.shape == (2, 64, 64, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -271,12 +271,12 @@ def test_bwd_wrapper_matches_jax_backward():
 
 
 def test_sm90_bwd_workspace_floats():
-    """dq partial sums (64 x padded depth) and 128 statistics per (b*h,
-    64-row q tile)."""
+    """dq partial sums (64 x padded depth 64-bit words) and 128 statistics
+    per (b*h, 64-row q tile), then 32 x 3 maxima and a scale per head."""
     assert port_flash.sm90_bwd_workspace_floats(16, 4096, 40) == \
-        16 * 64 * (64 * 48 + 128)
+        16 * 64 * (128 * 48 + 128) + 16 * 97
     assert port_flash.sm90_bwd_workspace_floats(3, 65, 80) == \
-        3 * 2 * (64 * 80 + 128)
+        3 * 2 * (128 * 80 + 128) + 3 * 97
     with pytest.raises(ValueError):
         port_flash.sm90_bwd_workspace_floats(1, 64, 36)
 

@@ -36,6 +36,7 @@ from consistentid_torch.models import (AutoencoderKL, CLIPTextEncoder,
                                        fold_lora_params)
 from consistentid_torch.models import layers as port_layers
 from consistentid_torch.sampling import schedulers as port_sched
+from test_torch_loading import one_torch_thread  # noqa: F401
 
 
 def init_params(mod, seed, *args):

@@ -40,6 +40,7 @@ from consistentid_torch.io import state_from_jax
 from consistentid_torch.models import arcface, bisenet, detection, scrfd
 from consistentid_torch.models import safety_checker
 from consistentid_torch.utils import image as port_image
+from test_torch_loading import one_torch_thread  # noqa: F401
 
 TINY_VISION = dict(image_size=28, patch_size=14, hidden_size=32,
                    intermediate_size=64, num_layers=2, num_heads=2)

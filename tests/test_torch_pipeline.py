@@ -20,6 +20,7 @@ from consistentid_torch.io import params_from_jax
 from consistentid_torch.ops import flash_attention as port_flash
 from consistentid_torch.pipelines import ConsistentIDPipeline
 from consistentid_torch.testing import synthetic_clip_tokenizer, tiny_bundle
+from test_torch_loading import one_torch_thread  # noqa: F401
 
 PROMPT = "portrait photo of a man with a strong face, blue eyes and a nose"
 STEPS, MERGE, GUIDANCE = 3, 1, 5.0
@@ -149,6 +150,24 @@ def test_generate_core_same_latents(pipes, jax_run, monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
     assert calls == [(4, 2, 1024, 16)] * 9
     assert port_flash.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("scheduler", ["euler", "dpmpp_2m"])
+def test_generate_core_samplers_same_latents(pipes, jax_run, scheduler):
+    """As test_generate_core_same_latents, with the Euler and
+    DPM-Solver++(2M) samplers at 4 steps (their init scale, model-input
+    scale and multistep history): 1e-3 on images in [-1, 1]."""
+    jpipe, params, ppipe, jcond = pipes
+    latents = jax_run[0]
+    want = np.asarray(jpipe._core_jit(
+        params, jpipe._device_cond(jcond), jnp.asarray(latents),
+        jnp.float32(GUIDANCE), jnp.int32(MERGE), 4, scheduler,
+        jnp.float32(1.0), jnp.float32(1.0), jax.random.PRNGKey(1), 1))
+    got = ppipe._generate_core(ppipe.device_cond(jcond),
+                               torch.from_numpy(latents), GUIDANCE, MERGE,
+                               4, scheduler, 1.0, 1.0)
+    assert got.shape == want.shape == (2, 64, 64, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
 
 
 def test_generate_returns_uint8(pipes):

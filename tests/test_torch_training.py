@@ -49,6 +49,7 @@ from consistentid_torch.training import (AdamW, Draws, consistentid_loss,
                                          synthetic_encoded_batch,
                                          warm_start_ip_projections)
 from consistentid_torch.training.train_step import batch_to_tensors
+from test_torch_loading import one_torch_thread  # noqa: F401
 
 B1 = 0.9
 
