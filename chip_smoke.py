@@ -20,7 +20,9 @@ Phases, each printing its result; any failure exits non-zero:
      Sk under one tile, head dims 64 and 128 and one batch*head; mma at
      head dim 36; f32), each call asserting the route it launched on; at
      the main shapes the mma.sync kernels they replaced are timed beside
-     them; K1 also at the infer CLI's shapes (768x512);
+     them; K1 also at the infer CLI's shapes (768x512) and at SDXL's
+     head_dim-64 shapes (1024x1024: X1 = (2, 10, 4096, 64) at UNet level 1,
+     X2 = (2, 20, 1024, 64) at level 2 and the mid block);
   3b. dq order: the fused backward at the training shapes gives the same
      dq, dk, dv bits over 50 calls, alone and beside a busy stream, and is
      timed in turns against a build of its source that adds dQ in fp32 in
@@ -73,8 +75,22 @@ Phases, each printing its result; any failure exits non-zero:
  15. serve: `apps.serve.serve` on 127.0.0.1, buckets warmed, 6 concurrent
      requests (512 px, 50 DDIM steps) answered 200 in at least 2 batches,
      500 K1 launches per batch, a malformed body and an oversized image
-     refused.
-Phase 9 runs after phase 3, phases 10 to 15 after phase 5 (before the
+     refused;
+ 16. SDXL: a full-width SDXL ConsistentID bundle (sdxl_unet_config with
+     LoRA rank 128 and 4 IP tokens, CLIP-L and bigG, ViT-H, the SDXL VAE
+     decoding in fp32; bf16, random weights from a seed) runs generate() at
+     the SDXL pipeline's defaults (one image, 1024x1024, 50 DDIM steps, CFG
+     7.5, merge step 30): a finite (1024, 1024, 3) image, 3500 K1 launches
+     (70 per UNet call) all on sm90 and no other kernel; a level-1 and a
+     level-2 self-attention of the real UNet through K1 against
+     reference_attention; a batch of 2 whose request 0 is the request alone
+     within one grey level; one UNet call under torch.profiler;
+ 17. SDXL infer: the SD1.5 dump deleted, the SDXL bundle written as a
+     reference-layout SDXL set (fp16) beside the image encoder and face
+     packs already written, `apps.infer.main --sdxl` at 1024x1024, CFG
+     7.5 from the PNG face: a (1024, 1024, 3) PNG, 3500 K1 launches on
+     sm90, the float path finite and within one grey level of the PNG.
+Phase 9 runs after phase 3, phases 10 to 17 after phase 5 (before the
 bundle is trained).
 Kernel times on the card are `cuda_ms`: CUDA events around calls the host
 queued behind a sleep kernel, so the host's time per call is not counted;
@@ -277,6 +293,10 @@ def kernel_phase():
         # the infer CLI's default request (768x512, one image, CFG pair)
         ("infer_level0", (2, 8, 6144, 40), 6144, torch.bfloat16, 20),
         ("infer_level1", (2, 8, 1536, 80), 1536, torch.bfloat16, 50),
+        # SDXL at 1024x1024, one image (CFG pair): the self-attention of
+        # UNet level 1 (X1) and of level 2 and the mid block (X2)
+        ("sdxl_level1", (2, 10, 4096, 64), 4096, torch.bfloat16, 20),
+        ("sdxl_level2", (2, 20, 1024, 64), 1024, torch.bfloat16, 50),
         ("level0_fp16", (8, 8, 4096, 40), 4096, torch.float16, None),
         ("level1_fp16", (8, 8, 1024, 80), 1024, torch.float16, None),
         ("ragged_bf16_d40", (2, 3, 1000, 40), 1037, torch.bfloat16, None),
@@ -819,25 +839,30 @@ def unet_path_check(bundle):
                 max_abs_out=scale)
 
 
-def profile_unet(bundle, top: int = 12):
-    """Device time of one full-width UNet call (batch 8, as CFG at 4 images
-    runs it) by kernel, from torch.profiler: the total, the share of the
-    call's wall time the card was busy, and the `top` kernels."""
+def profile_unet(bundle, top: int = 12, inputs=None, label=None):
+    """Device time of one full-width UNet call by kernel, from
+    torch.profiler: the total, the share of the call's wall time the card
+    was busy, and the `top` kernels. inputs: (x, t, context, added_cond);
+    by default SD1.5's batch 8 (CFG at 4 images), 64x64 latents."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator("cuda").manual_seed(3)
-    x = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
-    t = torch.full((8,), 501.0, device="cuda")
-    ctx = torch.randn((8, 81, 768), generator=gen, device="cuda")
+    if inputs is None:
+        gen = torch.Generator("cuda").manual_seed(3)
+        inputs = (torch.randn((8, 64, 64, 4), generator=gen, device="cuda"),
+                  torch.full((8,), 501.0, device="cuda"),
+                  torch.randn((8, 81, 768), generator=gen, device="cuda"),
+                  None)
+        label = "bf16, batch 8, 64x64 latents"
+    x, t, ctx, added = inputs
     unet = bundle.infer_unet(1.0)
     with torch.no_grad():
-        unet(x, t, ctx)
+        unet(x, t, ctx, added_cond=added)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            unet(x, t, ctx)
+            unet(x, t, ctx, added_cond=added)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -850,9 +875,8 @@ def profile_unet(bundle, top: int = 12):
                  ms=e.self_device_time_total / 1e3,
                  share=e.self_device_time_total / 1e3 / device_ms)
             for e in kernels[:top]]
-    log(f"UNet call profile (bf16, batch 8, 64x64 latents): wall "
-        f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
-        f"({device_ms / wall_ms:.1%})")
+    log(f"UNet call profile ({label}): wall {wall_ms:.3f} ms, device busy "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%})")
     for r in rows:
         log(f"  {r['ms']:9.3f} ms {r['share']:6.1%} x{r['calls']:<4d} "
             f"{r['kernel']}")
@@ -2063,6 +2087,293 @@ def serve_phase(pipe):
         batcher.stop()
 
 
+SDXL_K1_PER_UNET_CALL = 70   # 10 at level 1 (X1), 60 at level 2 and mid (X2)
+
+
+def sdxl_vocab():
+    """The synthetic byte-level vocab with eos at CLIP's id 49407, where
+    the text towers read the pooled state (models/clip.py), so that each
+    prompt gets its own pooled embedding."""
+    from consistentid_torch.testing import synthetic_clip_tokenizer
+    return {**synthetic_clip_tokenizer().encoder, "<|endoftext|>": 49407}
+
+
+def sdxl_tokenizers():
+    """The SDXL vocab as SDXL's two tokenizers: the first pads with eos,
+    the second with "!" (id 0), as its dump declares."""
+    from consistentid_torch.conditioning import CLIPBPETokenizer
+    vocab = sdxl_vocab()
+    return (CLIPBPETokenizer(vocab, []),
+            CLIPBPETokenizer(vocab, [], pad_token="!"))
+
+
+def sdxl_pooled_check(pipe, face, **kw):
+    """The pooled embeddings of one request on the card, each read at its
+    prompt's eos: both branches' positives finite and distinct from the
+    shared negative, the one tensor both branches hold. The two positives
+    are tower outputs of the same ids (the text-only prompt is the facial
+    one without its trigger tokens, which the facial ids drop), as in the
+    reference, so they are only reported."""
+    import torch
+    cond = pipe.device_cond(pipe.prepare_conditioning(PROMPT, face, **kw))
+    text, facial = pipe.encode_embeddings_xl(cond)
+    if text.pooled_null is not facial.pooled_null:
+        raise AssertionError("SDXL: the branches' negative pooled "
+                             "embeddings are not the one shared tensor")
+    same_ids = bool(torch.equal(cond["clean_ids2"], cond["text_only_ids2"]))
+    diffs = {}
+    for name, a, b in (("facial vs negative", facial.pooled,
+                        facial.pooled_null),
+                       ("text vs negative", text.pooled, text.pooled_null),
+                       ("facial vs text", facial.pooled, text.pooled)):
+        diffs[name] = float((a.float() - b.float()).abs().max())
+        if not torch.isfinite(a).all() or (
+                diffs[name] == 0.0 and name != "facial vs text"):
+            raise AssertionError(f"SDXL pooled embeddings {name}: max abs "
+                                 f"difference {diffs[name]} (0 when every "
+                                 "prompt is pooled at one position)")
+    log("SDXL pooled embeddings, max abs difference: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in diffs.items())
+        + f"; facial and text-only ids2 the same: {same_ids}")
+    return dict(diffs, same_ids=same_ids)
+
+
+def sdxl_attention_check(unet):
+    """One level-1 (X1) and one level-2 (X2) self-attention of the SDXL
+    UNet on the card: the block's own projections of a unit-normal hidden
+    state through the dispatch (one K1 launch on sm90 each), held against
+    reference_attention on the same q, k, v at the 16-bit limit with the
+    dropped-tile control."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.ops.attention import (dot_product_attention,
+                                                  reference_attention,
+                                                  split_heads)
+    from consistentid_torch.testing import (KERNEL_REL_L2_16BIT,
+                                            drop_last_tile, rel_l2)
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    rows = []
+    for name, attn, tokens in (
+            ("level1", unet.down_1_attn_0.blocks_0.attn1, 4096),
+            ("level2", unet.down_2_attn_0.blocks_0.attn1, 1024)):
+        dim = attn.to_q.in_features
+        x = torch.randn((2, tokens, dim), generator=gen, device="cuda",
+                        dtype=attn.to_q.weight.dtype)
+        with torch.no_grad():
+            q, k, v = (split_heads(getattr(attn, p)(x), attn.heads)
+                       for p in ("to_q", "to_k", "to_v"))
+            out = counted_call(fa.flash_attention_fwd,
+                               lambda: dot_product_attention(q, k, v),
+                               "sm90")
+            ref = reference_attention(q, k, v)
+            cut = drop_last_tile(tokens)
+            control = rel_l2(reference_attention(q, k[:, :, :cut],
+                                                 v[:, :, :cut]), ref)
+        rel = rel_l2(out, ref)
+        check(f"SDXL UNet {name} self-attention through K1", rel, control,
+              KERNEL_REL_L2_16BIT)
+        rows.append(dict(block=name, shape=list(q.shape), rel_l2=rel,
+                         control_rel_l2=control))
+        log(f"SDXL UNet {name} self-attention {tuple(q.shape)} through the "
+            f"dispatch (K1 sm90) vs reference_attention: rel_l2 {rel:.3g} "
+            f"(limit {KERNEL_REL_L2_16BIT:g}; control {control:.3g})")
+    return rows
+
+
+def sdxl_path():
+    """The SDXL main path: a full-width SDXL ConsistentID bundle (UNet of
+    sdxl_unet_config with LoRA rank 128 and 4 IP tokens, CLIP-L and bigG,
+    ViT-H, the SDXL VAE decoding in fp32, sdxl_adapter_config; bf16,
+    N(0, 0.02) weights from a seeded generator) runs generate() at the
+    SDXL pipeline's defaults (1024x1024, 50 DDIM steps, CFG 7.5, merge step
+    30), one image; checks the image, 3500 K1 launches all on sm90 and no
+    other kernel; the real UNet's level-1 and level-2 attention against
+    reference_attention; a batch of 2 with distinct seeds whose request 0
+    is the request alone within one grey level; one UNet call under
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from consistentid_torch.core import VAEConfig, sdxl_unet_config
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.pipelines import (ConsistentIDXLPipeline,
+                                              SDXLBundle, sdxl_adapter_config)
+    from consistentid_torch.utils.image import to_uint8
+
+    t0 = time.perf_counter()
+    bundle = SDXLBundle(
+        sdxl_unet_config(lora_rank=128, ip_num_tokens=4),
+        sdxl_adapter_config(num_id_tokens=4),
+        vae_config=VAEConfig(scaling_factor=0.13025, force_upcast=True),
+        dtype=torch.bfloat16, device="cuda")
+    bundle.random_params(torch.Generator("cuda").manual_seed(0))
+    on_cpu = [n for n, p in bundle.named_parameters() if not p.is_cuda]
+    if on_cpu:
+        raise AssertionError(f"SDXL parameters on the CPU: {on_cpu[:5]}")
+    n_params = sum(p.numel() for p in bundle.parameters())
+    tok, tok2 = sdxl_tokenizers()
+    pipe = ConsistentIDXLPipeline(bundle, tok, tokenizer_2=tok2)
+    torch.cuda.synchronize()
+    parts = {name: sum(p.numel() for p in getattr(bundle, name).parameters())
+             / 1e9 for name in ("unet", "text_encoder_2", "image_encoder")}
+    log(f"SDXL bundle: {n_params / 1e9:.3f} B params bf16 ("
+        + ", ".join(f"{k} {v:.3f} B" for k, v in parts.items())
+        + f"), built in {time.perf_counter() - t0:.1f} s; config "
+        f"{pipe.config}")
+    face, labels, faceid = face_inputs()
+    kw = dict(parsing_labels=labels, faceid_embeds=faceid)
+    pooled = sdxl_pooled_check(pipe, face, **kw)
+
+    t0 = time.perf_counter()
+    pipe.generate(PROMPT, face, seed=0, num_inference_steps=2, **kw)
+    torch.cuda.synchronize()
+    log(f"SDXL warm-up generate (2 steps): {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters() + bn_counters()
+    fa.reset_launches(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = pipe.generate(PROMPT, face, seed=1, return_float=True, **kw)
+    out = to_uint8(images).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    launches = [w.launches for w in counters]
+    by_route = dict(fa.flash_attention_fwd.launches_by_route)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = SDXL_K1_PER_UNET_CALL * 50
+    if out.shape != (1, 1024, 1024, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"SDXL output {out.shape} {out.dtype}")
+    if images.device.type != "cuda" or images.dtype != torch.float32:
+        raise AssertionError(f"SDXL decode {images.device} {images.dtype}, "
+                             "expected fp32 on the card")
+    if not torch.isfinite(images).all():
+        raise AssertionError("SDXL: non-finite decoded images")
+    if launches != [expected, 0, 0, 0, 0] or by_route["sm90"] != expected:
+        raise AssertionError(f"SDXL: launches K1, K2, K3 + K4, K5, K6 "
+                             f"{launches} (K1 {by_route}), expected K1 "
+                             f"{expected} (70 per UNet call x 50 steps) on "
+                             "sm90 only")
+    stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+    log(f"SDXL generate (1 image, 1024x1024, 50 DDIM steps, CFG 7.5, merge "
+        f"step 30): {seconds:.3f} s, stages ms {stages}, denoise "
+        f"{stages['denoise'] / 50:.1f} ms/step, peak memory {peak_gib:.2f} "
+        f"GiB, K1 launches {launches[0]} (expected {expected}) {by_route}, "
+        f"image std {float(images.std()):.4f}")
+
+    unet = bundle.infer_unet(1.0)
+    attention = sdxl_attention_check(unet)
+    del unet
+
+    face2 = np.ascontiguousarray(face[:, ::-1])
+    t0 = time.perf_counter()
+    pair = pipe.generate_batch(
+        [PROMPT, "a woman in a garden"], [face, face2], seeds=[1, 5],
+        parsing_labels_list=[labels, np.ascontiguousarray(labels[:, ::-1])],
+        faceid_embeds_list=[faceid, -faceid])
+    pair_s = time.perf_counter() - t0
+    diff = int(np.abs(pair[0].astype(int) - out[0]).max())
+    log(f"SDXL generate_batch (2 requests, seeds 1 and 5): {pair_s:.3f} s; "
+        f"request 0 against the request alone: max uint8 difference {diff} "
+        f"(allowed 1)")
+    if pair.shape != (2, 1024, 1024, 3) or diff > 1:
+        raise AssertionError(f"SDXL batch of 2: {pair.shape}, request 0 off "
+                             f"the request alone by {diff} grey levels")
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    inputs = (torch.randn((2, 128, 128, 4), generator=gen, device="cuda"),
+              torch.full((2,), 501.0, device="cuda"),
+              torch.randn((2, 81, 2048), generator=gen, device="cuda"),
+              {"text_embeds": torch.randn((2, 1280), generator=gen,
+                                          device="cuda"),
+               "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]],
+                                        device="cuda").repeat(2, 1)})
+    profile = profile_unet(bundle, inputs=inputs,
+                           label="SDXL bf16, batch 2, 128x128 latents")
+    return bundle, dict(
+        seconds=seconds, stage_ms=stages, denoise_ms_per_step=(
+            stages["denoise"] / 50), peak_gib=peak_gib,
+        params_b=n_params / 1e9, launches=launches[0],
+        expected_launches=expected, launches_by_route=by_route,
+        attention_checks=attention, batch2_s=pair_s,
+        batch2_vs_alone_max_diff=diff, pooled_max_abs_diff=pooled,
+        unet_profile=profile)
+
+
+def sdxl_infer_phase(bundle, sd15_paths, outdir):
+    """`apps.infer.main --sdxl` at 1024x1024, CFG 7.5 (Euler, 50 steps,
+    seed 2024) from the PNG face the SD1.5 infer phase wrote, with SCRFD,
+    ArcFace and BiSeNet: the SD1.5 dump is deleted first, the SDXL bundle
+    written as a reference-layout SDXL set in fp16 beside the image
+    encoder and face packs already written (reused); a (1024, 1024, 3)
+    PNG, 3500 K1 launches on sm90 only, the float path finite and within
+    one grey level of the PNG."""
+    import numpy as np
+    import torch
+    from consistentid_torch.apps import infer
+    from consistentid_torch.io.export import write_reference_checkpoints
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.utils.image import to_uint8
+    from consistentid_torch.utils.png import decode_png
+
+    shutil.rmtree(sd15_paths["base"])
+    t0 = time.perf_counter()
+    paths, nbytes = write_reference_checkpoints(
+        outdir, bundle, vocab=sdxl_vocab(), image_encoder=False)
+    write_s = time.perf_counter() - t0
+    log(f"SDXL checkpoint set: {nbytes} bytes ({nbytes / 2 ** 30:.2f} GiB) "
+        f"fp16 in {write_s:.1f} s: {sorted(paths)}")
+    face_path = str(Path(outdir) / "face.png")
+    out = str(Path(outdir) / "infer_sdxl.png")
+    argv = ["--sdxl", "--base", paths["base"],
+            "--consistentid", paths["consistentid_path"],
+            "--image-encoder", sd15_paths["image_encoder_path"],
+            "--bisenet", sd15_paths["bisenet_path"],
+            "--arcface", sd15_paths["arcface_path"],
+            "--scrfd", sd15_paths["scrfd_path"],
+            "--height", "1024", "--width", "1024", "--guidance-scale", "7.5",
+            "--image", face_path, "--prompt", PROMPT, "--out", out]
+    counters = launch_counters() + bn_counters()
+    fa.reset_launches(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = infer.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = [w.launches for w in counters]
+    by_route = dict(fa.flash_attention_fwd.launches_by_route)
+    stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+    load_s = seconds - sum(pipe.last_stage_ms.values()) / 1e3
+    expected = SDXL_K1_PER_UNET_CALL * 50
+    with open(out, "rb") as f:
+        png = decode_png(f.read())
+    if png.shape != (1024, 1024, 3) or png.dtype != np.uint8:
+        raise AssertionError(f"SDXL infer PNG {png.shape} {png.dtype}")
+    if launches != [expected, 0, 0, 0, 0] or by_route["sm90"] != expected:
+        raise AssertionError(f"SDXL infer: launches K1, K2, K3 + K4, K5, K6 "
+                             f"{launches} (K1 {by_route}), expected K1 "
+                             f"{expected} on sm90 only")
+    negative = infer.build_parser().get_default("negative_prompt")
+    face = decode_png(open(face_path, "rb").read())
+    images = pipe.generate(PROMPT, face, negative_prompt=negative,
+                           seed=2024, return_float=True)
+    if not torch.isfinite(images.float()).all():
+        raise AssertionError("SDXL infer: non-finite decoded images")
+    diff = int(np.abs(to_uint8(images)[0].cpu().numpy().astype(int)
+                      - png).max())
+    if diff > 1:
+        raise AssertionError(f"SDXL infer: the PNG is off the request's "
+                             f"image by {diff} grey levels")
+    log(f"SDXL infer CLI (--sdxl, Euler, 50 steps, 1024x1024, CFG 7.5, seed "
+        f"2024, SCRFD + ArcFace + BiSeNet): {seconds:.3f} s with the load "
+        f"(load and host work about {load_s:.2f} s), stages ms {stages}, K1 "
+        f"launches {launches[0]} {by_route}; PNG {png.shape}, off the float "
+        f"path's pixels by {diff} grey levels")
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(bytes=nbytes, write_s=write_s, call_s=seconds,
+                load_s=load_s, stage_ms=stages, launches=launches[0],
+                launches_by_route=by_route, png_vs_float_path_max_diff=diff)
+
+
 def main() -> int:
     try:
         import torch
@@ -2116,6 +2427,11 @@ def main() -> int:
         del infer_pipe
         gc.collect()  # the server's handler objects hold it in cycles
         torch.cuda.empty_cache()
+        sdxl_bundle, sdxl = sdxl_path()
+        sdxl_infer = sdxl_infer_phase(sdxl_bundle, paths, tmp)
+        del sdxl_bundle
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     state, train = training_path(bundle)
@@ -2156,10 +2472,17 @@ def main() -> int:
          "launches_per_infer_call": inferred["launches"],
          "infer_launches_by_route": inferred["launches_by_route"],
          "launches_per_served_batch": served["k1_launches_per_batch"],
+         "launches_per_sdxl_request": sdxl["launches"],
+         "sdxl_launches_by_route": sdxl["launches_by_route"],
+         "launches_per_sdxl_infer_call": sdxl_infer["launches"],
+         "sdxl_infer_launches_by_route": sdxl_infer["launches_by_route"],
          "launches_note": "launches: per generate (batch 4, 50 DDIM steps,"
                           " 512 px); also per infer call (768x512, 50 "
-                          "Euler steps) and per served batch (512 px, 50 "
-                          "DDIM steps)"},
+                          "Euler steps), per served batch (512 px, 50 "
+                          "DDIM steps), per SDXL generate (1 image, "
+                          "1024x1024, 50 DDIM steps: 10 calls at X1 = "
+                          "sdxl_level1 and 60 at X2 = sdxl_level2 per UNet "
+                          "call) and per SDXL infer call (50 Euler steps)"},
         {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
@@ -2205,7 +2528,8 @@ def main() -> int:
     log(json.dumps({"main_path": main, "unet_path_check": path,
                     "perception": perception, "photo_generate": photo,
                     "dq_order": dq_order, "load": loaded, "infer": inferred,
-                    "samplers": samplers, "serve": served,
+                    "samplers": samplers, "serve": served, "sdxl": sdxl,
+                    "sdxl_infer": sdxl_infer,
                     "tiny_card_vs_cpu": tiny, "unet_profile": profile,
                     "training_path": train, "train_profile": train_profile,
                     "training_unet_path_check": train_path,

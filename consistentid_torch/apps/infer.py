@@ -10,10 +10,13 @@ infer.py:10-73; the JAX package's apps/infer.py), on the card unless
         --prompt "cinematic photo, a man ..." --out out.png
 
 Defaults mirror the reference: Euler, 50 steps, start_merge_step 30, CFG
-5.0, 768x512 (height x width), seed 2024 (infer.py:48-64). The face image
-is a PNG or a .npy uint8 array; outputs are PNGs. Flags of paths not ported
-yet (SDXL, img2img/inpaint, int8, DeepCache) exit with an error naming the
-ROADMAP item.
+5.0, 768x512 (height x width), seed 2024 (infer.py:48-64). `--sdxl` loads
+an SDXL dump (text_encoder_2/, tokenizer_2/ beside SD1.5's subfolders) with
+`load_sdxl_consistentid` and applies the same defaults, as the JAX CLI does
+(its help names infer_SDXL.py's 864x1152 and CFG 7.5, which it does not
+apply). The face image is a PNG or a .npy uint8 array; outputs are PNGs.
+Flags of paths not ported yet (img2img/inpaint, int8, DeepCache) exit with
+an error naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
     --prompt optional, as requests bring their own."""
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--base", required=True, help="diffusers SD1.5 dir")
+    p.add_argument("--base", required=True,
+                   help="diffusers SD1.5 dir (SDXL with --sdxl)")
     p.add_argument("--consistentid", default=None,
                    help="ConsistentID-v1.bin / .safetensors")
     p.add_argument("--image-encoder", default=None,
@@ -60,8 +64,8 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
                    help="identity-adapter strength")
     p.add_argument("--lora-scale", type=float, default=1.0)
     p.add_argument("--tiny", action="store_true",
-                   help="toy-scale model configs (testing.tiny_bundle, for "
-                        "toy checkpoint sets)")
+                   help="toy-scale model configs (testing.tiny_bundle or "
+                        "tiny_sdxl_bundle, for toy checkpoint sets)")
     p.add_argument("--no-safety-checker", action="store_true",
                    help="skip the CLIP safety checker even if the dump "
                         "ships one")
@@ -77,9 +81,11 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--save-act-scales", default=None,
                    help="int8_static scales to save (not ported yet)")
     p.add_argument("--sdxl", action="store_true",
-                   help="SDXL base (not ported yet)")
+                   help="SDXL base (reference infer_SDXL.py defaults: "
+                        "864x1152, CFG 7.5; not applied, as in the JAX CLI)")
     p.add_argument("--tokenizer-2", default=None,
-                   help="SDXL second tokenizer (not ported yet)")
+                   help="SDXL second tokenizer dir; default: "
+                        "<base>/tokenizer_2")
     p.add_argument("--init-image", default=None,
                    help="img2img init image (not ported yet)")
     p.add_argument("--mask-image", default=None,
@@ -90,7 +96,6 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
 
 
 NOT_PORTED = (
-    ("sdxl", "--sdxl", "A5"), ("tokenizer_2", "--tokenizer-2", "A5"),
     ("init_image", "--init-image", "A6"), ("mask_image", "--mask-image", "A6"),
     ("act_scales", "--act-scales", "A9"),
     ("save_act_scales", "--save-act-scales", "A9"),
@@ -99,7 +104,11 @@ NOT_PORTED = (
 
 def check_args(parser: argparse.ArgumentParser,
                args: argparse.Namespace) -> None:
-    """Exit through parser.error for flags whose paths are not ported."""
+    """Exit through parser.error for flags whose paths are not ported, and
+    for --init-image with --sdxl, which the JAX CLI refuses too."""
+    if args.init_image and args.sdxl:
+        parser.error("--init-image is SD1.5-only (the reference has no "
+                     "SDXL img2img/inpaint variant either)")
     for attr, flag, item in NOT_PORTED:
         if getattr(args, attr):
             parser.error(f"{flag} is not ported yet (ROADMAP {item})")
@@ -116,7 +125,8 @@ def load_pipeline(args: argparse.Namespace):
     """The pipeline the flags describe, from the checkpoint files."""
     from ..conditioning import CLIPBPETokenizer
     from ..core.config import PipelineConfig
-    from ..pipelines.loading import load_sd15_consistentid
+    from ..pipelines.loading import (load_sd15_consistentid,
+                                     load_sdxl_consistentid)
 
     config = PipelineConfig(
         height=args.height, width=args.width,
@@ -127,14 +137,22 @@ def load_pipeline(args: argparse.Namespace):
               image_encoder_path=args.image_encoder,
               bisenet_path=args.bisenet, arcface_path=args.arcface,
               scrfd_path=args.scrfd, pipeline_config=config,
-              with_safety_checker=not args.no_safety_checker,
               device=args.device)
     if args.tokenizer:
         kw["tokenizer"] = CLIPBPETokenizer.from_pretrained(args.tokenizer)
+    if args.sdxl:
+        if args.tokenizer_2:
+            kw["tokenizer_2"] = CLIPBPETokenizer.from_pretrained(
+                args.tokenizer_2)
+        if args.tiny:
+            from ..testing import tiny_sdxl_bundle
+            kw["bundle"] = tiny_sdxl_bundle(device=args.device)
+        return load_sdxl_consistentid(args.base, **kw)
     if args.tiny:
         from ..testing import tiny_bundle
         kw["bundle"] = tiny_bundle(device=args.device)
-    return load_sd15_consistentid(args.base, **kw)
+    return load_sd15_consistentid(
+        args.base, with_safety_checker=not args.no_safety_checker, **kw)
 
 
 def write_images(images, out: str) -> List[str]:

@@ -262,6 +262,9 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     p = build_parser()
     args = p.parse_args(argv)
+    if args.sdxl or args.tokenizer_2:
+        p.error("the server serves SD1.5 only, as the JAX package's does "
+                "(SDXL serving: ROADMAP A5)")
     check_args(p, args)
     pipe = load_pipeline(args)
     server, batcher = serve(pipe, args.port, args.max_batch, args.window_ms,

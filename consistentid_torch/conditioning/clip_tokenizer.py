@@ -12,7 +12,7 @@ import json
 import os
 import re
 import unicodedata
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 try:  # transformers' dependency, present wherever transformers is
     import regex as _regex
@@ -74,7 +74,7 @@ class CLIPBPETokenizer:
     reads a vocab.json/merges.txt dump."""
 
     def __init__(self, vocab: Dict[str, int], merges: List[str],
-                 model_max_length: int = 77):
+                 model_max_length: int = 77, pad_token: Optional[str] = None):
         self.encoder = dict(vocab)
         self.byte_encoder = bytes_to_unicode()
         merge_pairs = [tuple(m.split()) for m in merges]
@@ -84,18 +84,28 @@ class CLIPBPETokenizer:
         self.model_max_length = model_max_length
         self.bos_token_id = self.encoder["<|startoftext|>"]
         self.eos_token_id = self.encoder["<|endoftext|>"]
-        self.pad_token_id = self.eos_token_id  # CLIP-L pads with eos
+        # CLIP-L pads with eos; SDXL's tokenizer_2 (OpenCLIP bigG) pads with
+        # "!", id 0, which its dump declares in tokenizer_config.json
+        self.pad_token_id = (self.encoder[pad_token] if pad_token is not None
+                             else self.eos_token_id)
         self.unk_token_id = self.eos_token_id
         self._added: Dict[str, int] = {}
         self._added_re = None
+        # HF registers a declared pad token as special: split verbatim from
+        # the text (no </w> word-end form) and mapped to its bare vocab id,
+        # so a literal "!" encodes as id 0 through tokenizer_2
+        self._special_verbatim: Dict[str, int] = {}
+        if pad_token is not None:
+            self._special_verbatim[pad_token] = self.encoder[pad_token]
+            self._rebuild_added_re()
 
     @classmethod
     def from_pretrained(cls, path: str, model_max_length: int = 77):
         """path: a diffusers `tokenizer/` dump (vocab.json + merges.txt) or
         a directory containing one (JAX package's
-        CLIPBPETokenizer.from_pretrained). SD1.5's CLIP-L pads with eos, so
-        a declared pad token is not read (SDXL's tokenizer_2 is not
-        ported)."""
+        CLIPBPETokenizer.from_pretrained). A pad_token that the dump's
+        tokenizer_config.json or special_tokens_map.json declares is read
+        (SDXL's tokenizer_2 pads with "!"); else pads are eos."""
         if os.path.isdir(os.path.join(path, "tokenizer")):
             path = os.path.join(path, "tokenizer")
         with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
@@ -103,12 +113,24 @@ class CLIPBPETokenizer:
         with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
             # first line is the "#version" header; HF caps the merge count
             merges = f.read().strip().split("\n")[1: 49152 - 256 - 2 + 1]
-        return cls(vocab, merges, model_max_length=model_max_length)
+        pad_token = None
+        for cfg_name in ("tokenizer_config.json", "special_tokens_map.json"):
+            cfg_path = os.path.join(path, cfg_name)
+            if pad_token is None and os.path.isfile(cfg_path):
+                with open(cfg_path, encoding="utf-8") as f:
+                    declared = json.load(f).get("pad_token")
+                if isinstance(declared, dict):  # AddedToken serialization
+                    declared = declared.get("content")
+                if declared in vocab:
+                    pad_token = declared
+        return cls(vocab, merges, model_max_length=model_max_length,
+                   pad_token=pad_token)
 
     # -- added tokens (the <|image|>/<|facial|> triggers) ----------------
 
     def _rebuild_added_re(self):
-        longest_first = sorted(self._added, key=len, reverse=True)
+        split = {**self._special_verbatim, **self._added}
+        longest_first = sorted(split, key=len, reverse=True)
         self._added_re = (re.compile("|".join(map(re.escape, longest_first)))
                           if longest_first else None)
 

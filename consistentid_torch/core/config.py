@@ -1,16 +1,16 @@
 """Configuration dataclasses of the port.
 
-Copies of the JAX package's core/config.py entries that the SD1.5
-text-to-image and training paths read, with the same field names and
-defaults, so a config carries across field by field. Fields the port does
-not read yet (SDXL text_time, DeepCache, prediction types and timestep
-spacings other than epsilon/leading, the adapter's duplicated LoRA and scale
-defaults) are left out.
+Copies of the JAX package's core/config.py entries that the SD1.5 and SDXL
+text-to-image and the SD1.5 training paths read, with the same field names
+and defaults, so a config carries across field by field. Fields the port
+does not read yet (DeepCache, prediction types and timestep spacings other
+than epsilon/leading, the adapter's duplicated LoRA and scale defaults) are
+left out.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -32,6 +32,11 @@ class UNetConfig:
     time_embed_dim_mult: int = 4
     freq_shift: float = 0.0
     flip_sin_to_cos: bool = True
+    # SDXL micro-conditioning ("text_time" added embedding); the SDXL layout
+    # also takes linear transformer projections
+    addition_embed_type: Optional[str] = None      # None | "text_time"
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     lora_rank: int = 0
     ip_num_tokens: int = 0
 
@@ -42,15 +47,43 @@ class UNetConfig:
     def head_dim(self, level: int) -> int:
         return self.block_out_channels[level] // self.num_attention_heads[level]
 
+    @property
+    def is_sdxl(self) -> bool:
+        """The SDXL layout: the text_time added embedding, linear
+        transformer projections, and an adapter checkpoint whose projection
+        is named `image_proj_model`."""
+        return self.addition_embed_type == "text_time"
+
 
 def sd15_unet_config(**overrides) -> UNetConfig:
     """SD1.5 UNet2DConditionModel layout (runwayml/stable-diffusion-v1-5)."""
     return UNetConfig(**overrides)
 
 
+def sdxl_unet_config(**overrides) -> UNetConfig:
+    """SDXL base UNet layout (stabilityai/stable-diffusion-xl-base-1.0):
+    a plain level 0, then 2 and 10 transformer layers at levels 1 and 2,
+    10 in the mid block; 10 and 20 heads of dim 64; text_time
+    micro-conditioning (reference pipline_StableDiffusionXL_ConsistentID.py
+    :527-539)."""
+    base = dict(
+        block_out_channels=(320, 640, 1280),
+        down_block_has_attn=(False, True, True),
+        transformer_layers_per_block=(0, 2, 10),
+        mid_transformer_depth=10,
+        num_attention_heads=(5, 10, 20),
+        cross_attention_dim=2048,
+        addition_embed_type="text_time",
+        addition_time_embed_dim=256,
+        projection_class_embeddings_input_dim=2816,
+    )
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
 @dataclass(frozen=True)
 class VAEConfig:
-    """AutoencoderKL (the SD1.5 VAE)."""
+    """AutoencoderKL (SD1.5 and SDXL share this layout)."""
 
     in_channels: int = 3
     out_channels: int = 3
@@ -58,7 +91,9 @@ class VAEConfig:
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 2
     norm_num_groups: int = 32
-    scaling_factor: float = 0.18215
+    scaling_factor: float = 0.18215     # 0.13025 for SDXL
+    force_upcast: bool = False          # SDXL decodes in fp32 (reference
+    #                                     :670-672)
 
 
 @dataclass(frozen=True)
@@ -71,7 +106,15 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_position_embeddings: int = 77
-    hidden_act: str = "quick_gelu"
+    hidden_act: str = "quick_gelu"      # CLIP-L quick_gelu; bigG gelu
+
+
+def clip_text_bigg_config(**kw) -> CLIPTextConfig:
+    """OpenCLIP bigG (SDXL's text_encoder_2)."""
+    base = dict(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                num_heads=20, hidden_act="gelu")
+    base.update(kw)
+    return CLIPTextConfig(**base)
 
 
 @dataclass(frozen=True)

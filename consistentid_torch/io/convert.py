@@ -608,7 +608,9 @@ def export_consistentid_checkpoint(params: Dict, unet_cfg,
     """Inverse of load_consistentid_checkpoint: produce the reference's
     {image_proj, adapter_modules, FacialEncoder} .bin layout from a params
     bundle, so adapters trained here load in the reference ecosystem
-    (the distributable artifact of evaluation/convert_weights.py)."""
+    (the distributable artifact of evaluation/convert_weights.py). The
+    SDXL file names the projection `image_proj_model` (reference
+    pipline_StableDiffusionXL_ConsistentID.py:104-176)."""
     adapters: Dict[str, np.ndarray] = {}
     flat_unet = flatten_tree(params["unet"])
     for idx, (path, is_cross) in enumerate(unet_attention_paths(unet_cfg)):
@@ -630,7 +632,8 @@ def export_consistentid_checkpoint(params: Dict, unet_cfg,
                         bias=False)
 
     return {
-        "image_proj": export_proj_plus(params["proj"], proj_depth),
+        "image_proj_model" if unet_cfg.is_sdxl else "image_proj":
+            export_proj_plus(params["proj"], proj_depth),
         "FacialEncoder": export_facial_encoder(params["facial_encoder"],
                                                facial_depth),
         "adapter_modules": adapters,

@@ -61,11 +61,12 @@ def _transformer_block(sd, p):
     }
 
 
-def _transformer2d(sd, p, depth):
-    # SD1.5's 1x1 conv projections (SDXL's linear ones are not ported)
+def _transformer2d(sd, p, depth, use_linear):
+    # 1x1 conv projections (SD1.5) or linear ones (SDXL)
     out = {"norm": _gn(sd, f"{p}.norm")}
-    out["proj_in"] = conv(sd, f"{p}.proj_in")
-    out["proj_out"] = conv(sd, f"{p}.proj_out")
+    io_fn = linear if use_linear else conv
+    out["proj_in"] = io_fn(sd, f"{p}.proj_in")
+    out["proj_out"] = io_fn(sd, f"{p}.proj_out")
     for k in range(depth):
         out[f"blocks_{k}"] = _transformer_block(
             sd, f"{p}.transformer_blocks.{k}")
@@ -79,6 +80,7 @@ def unet_from_diffusers(sd: Mapping[str, np.ndarray],
     Adapter parameters (LoRA/IP) are NOT populated here; merge a ConsistentID
     checkpoint afterwards or keep them at their zero/warm-start init.
     """
+    use_linear = cfg.is_sdxl
     n = len(cfg.block_out_channels)
     out: Dict = {
         "conv_in": conv(sd, "conv_in"),
@@ -89,6 +91,11 @@ def unet_from_diffusers(sd: Mapping[str, np.ndarray],
         "conv_norm_out": _gn(sd, "conv_norm_out"),
         "conv_out": conv(sd, "conv_out"),
     }
+    if use_linear:
+        out["add_embedding"] = {
+            "linear_1": linear(sd, "add_embedding.linear_1"),
+            "linear_2": linear(sd, "add_embedding.linear_2"),
+        }
 
     for level in range(n):
         p = f"down_blocks.{level}"
@@ -97,7 +104,7 @@ def unet_from_diffusers(sd: Mapping[str, np.ndarray],
             if cfg.down_block_has_attn[level]:
                 out[f"down_{level}_attn_{j}"] = _transformer2d(
                     sd, f"{p}.attentions.{j}",
-                    cfg.transformer_layers_per_block[level])
+                    cfg.transformer_layers_per_block[level], use_linear)
         if level < n - 1:
             out[f"down_{level}_downsample"] = {
                 "conv": conv(sd, f"{p}.downsamplers.0.conv")}
@@ -105,7 +112,7 @@ def unet_from_diffusers(sd: Mapping[str, np.ndarray],
     out["mid_resnet_0"] = _resnet(sd, "mid_block.resnets.0")
     out["mid_resnet_1"] = _resnet(sd, "mid_block.resnets.1")
     out["mid_attn"] = _transformer2d(sd, "mid_block.attentions.0",
-                                     cfg.mid_transformer_depth)
+                                     cfg.mid_transformer_depth, use_linear)
 
     for i in range(n):
         level = n - 1 - i
@@ -115,7 +122,7 @@ def unet_from_diffusers(sd: Mapping[str, np.ndarray],
             if cfg.down_block_has_attn[level]:
                 out[f"up_{i}_attn_{j}"] = _transformer2d(
                     sd, f"{p}.attentions.{j}",
-                    cfg.transformer_layers_per_block[level])
+                    cfg.transformer_layers_per_block[level], use_linear)
         if i < n - 1:
             out[f"up_{i}_upsample"] = {
                 "conv": conv(sd, f"{p}.upsamplers.0.conv")}

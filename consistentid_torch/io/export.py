@@ -1,8 +1,9 @@
 """Write a port bundle and perception models as a reference-layout
-checkpoint set: the files `pipelines.loading.load_sd15_consistentid` and
-`load_face_stack` read (diffusers SD1.5 dump, image encoder, the
-ConsistentID .bin, BiSeNet .pth, iresnet .pt, SCRFD .onnx, the safety
-checker and a tokenizer vocab). The trees come from
+checkpoint set: the files `pipelines.loading.load_sd15_consistentid` (or,
+for an SDXL bundle, `load_sdxl_consistentid`) and `load_face_stack` read
+(diffusers SD1.5 or SDXL dump, image encoder, the ConsistentID .bin,
+BiSeNet .pth, iresnet .pt, SCRFD .onnx, the safety checker and the
+tokenizer vocabs). The trees come from
 `io.from_jax.tree_from_module` and go through the exporters of
 io/export_backbones.py and io/convert.py, the inverse of the maps the
 loader reads with, so loading the set gives the modules' weights back
@@ -43,12 +44,19 @@ def write_reference_checkpoints(
         detector: Optional[nn.Module] = None,
         safety_checker: Optional[nn.Module] = None,
         vocab: Optional[Mapping[str, int]] = None,
-        dtype=np.float16) -> Tuple[Dict[str, str], int]:
+        dtype=np.float16,
+        image_encoder: bool = True) -> Tuple[Dict[str, str], int]:
     """Write the set under `outdir`; returns ({name: path} in the
-    loaders' argument names, bytes written). bundle: an SD15Bundle; the
-    perception models are the port's BiSeNet, IResNet, SCRFD and
-    SafetyChecker modules; vocab: a CLIP BPE vocab (no merges)."""
-    base = os.path.join(outdir, "sd15")
+    loaders' argument names, bytes written). bundle: an SD15Bundle (dump in
+    sd15/, ConsistentID-v1.bin) or an SDXLBundle (dump in sdxl/ with
+    text_encoder_2/ and tokenizer_2/, whose pad token is "!", and
+    ConsistentID_SDXL-v1.bin under the SDXL prefixes); the perception
+    models are the port's BiSeNet, IResNet, SCRFD and SafetyChecker
+    modules; vocab: a CLIP BPE vocab (no merges); image_encoder=False
+    leaves the image encoder out (a set that shares another's)."""
+    sdxl = bundle.unet_config.is_sdxl
+    name = "sdxl" if sdxl else "sd15"
+    base = os.path.join(outdir, name)
     paths = {"base": base}
     written = 0
 
@@ -72,22 +80,28 @@ def write_reference_checkpoints(
         return path
 
     unet, _ = tree_from_module(bundle.unet)
-    save_st("sd15/unet/diffusion_pytorch_model.safetensors",
+    save_st(f"{name}/unet/diffusion_pytorch_model.safetensors",
             unet_to_diffusers(unet, bundle.unet_config))
     vae, _ = tree_from_module(bundle.vae)
-    save_st("sd15/vae/diffusion_pytorch_model.safetensors",
+    save_st(f"{name}/vae/diffusion_pytorch_model.safetensors",
             vae_to_diffusers(vae, bundle.vae_config))
     del vae
-    save_st("sd15/text_encoder/model.safetensors", clip_text_to_hf(
+    save_st(f"{name}/text_encoder/model.safetensors", clip_text_to_hf(
         tree_from_module(bundle.text_encoder)[0], bundle.text_config))
-    paths["image_encoder_path"] = save_st(
-        "image_encoder.safetensors", clip_vision_to_hf(
-            tree_from_module(bundle.image_encoder)[0],
-            bundle.vision_config))
+    if sdxl:
+        save_st(f"{name}/text_encoder_2/model.safetensors", clip_text_to_hf(
+            tree_from_module(bundle.text_encoder_2)[0],
+            bundle.text_config_2))
+    if image_encoder:
+        paths["image_encoder_path"] = save_st(
+            "image_encoder.safetensors", clip_vision_to_hf(
+                tree_from_module(bundle.image_encoder)[0],
+                bundle.vision_config))
     adapters = {"unet": unet, "proj": tree_from_module(bundle.proj)[0],
                 "facial_encoder": tree_from_module(bundle.facial_encoder)[0]}
     paths["consistentid_path"] = save_torch(
-        "ConsistentID-v1.bin", export_consistentid_checkpoint(
+        "ConsistentID_SDXL-v1.bin" if sdxl else "ConsistentID-v1.bin",
+        export_consistentid_checkpoint(
             adapters, bundle.unet_config,
             proj_depth=_depth(adapters["proj"]["perceiver_resampler"]),
             facial_depth=_depth(
@@ -115,7 +129,7 @@ def write_reference_checkpoints(
         paths["scrfd_path"] = path
     if safety_checker is not None:
         vc = safety_checker.vision_config
-        save_st("sd15/safety_checker/model.safetensors",
+        save_st(f"{name}/safety_checker/model.safetensors",
                 safety_checker_to_hf(tree_from_module(safety_checker)[0],
                                      vc))
         with open(os.path.join(base, "safety_checker", "config.json"),
@@ -128,10 +142,18 @@ def write_reference_checkpoints(
                 "num_attention_heads": vc.num_heads,
                 "hidden_act": vc.hidden_act}}, f)
     if vocab is not None:
-        tok_dir = os.path.join(base, "tokenizer")
-        os.makedirs(tok_dir, exist_ok=True)
-        with open(os.path.join(tok_dir, "vocab.json"), "w") as f:
-            json.dump(dict(vocab), f)
-        with open(os.path.join(tok_dir, "merges.txt"), "w") as f:
-            f.write("#version: 0.2\n")
+        tokenizers = [("tokenizer", None)]
+        if sdxl:
+            tokenizers.append(("tokenizer_2", {"pad_token": "!"}))
+        for sub, tok_cfg in tokenizers:
+            tok_dir = os.path.join(base, sub)
+            os.makedirs(tok_dir, exist_ok=True)
+            with open(os.path.join(tok_dir, "vocab.json"), "w") as f:
+                json.dump(dict(vocab), f)
+            with open(os.path.join(tok_dir, "merges.txt"), "w") as f:
+                f.write("#version: 0.2\n")
+            if tok_cfg:
+                with open(os.path.join(tok_dir, "tokenizer_config.json"),
+                          "w") as f:
+                    json.dump(tok_cfg, f)
     return paths, written

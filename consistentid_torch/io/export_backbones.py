@@ -76,11 +76,12 @@ def _transformer_block(tree, p: str, out):
     _linear(tree["ff"]["out"], f"{p}.ff.net.2", out)
 
 
-def _transformer2d(tree, p: str, out, depth: int):
-    # SD1.5's 1x1 conv projections (SDXL's linear ones are not ported)
+def _transformer2d(tree, p: str, out, depth: int, use_linear: bool):
+    # 1x1 conv projections (SD1.5) or linear ones (SDXL)
     _norm(tree["norm"], f"{p}.norm", out)
-    _conv(tree["proj_in"], f"{p}.proj_in", out)
-    _conv(tree["proj_out"], f"{p}.proj_out", out)
+    io_fn = _linear if use_linear else _conv
+    io_fn(tree["proj_in"], f"{p}.proj_in", out)
+    io_fn(tree["proj_out"], f"{p}.proj_out", out)
     for k in range(depth):
         _transformer_block(tree[f"blocks_{k}"],
                            f"{p}.transformer_blocks.{k}", out)
@@ -92,6 +93,7 @@ def unet_to_diffusers(tree, cfg) -> Dict[str, np.ndarray]:
     Adapter params (LoRA / to_k_ip / to_v_ip) are intentionally skipped —
     those belong in the ConsistentID .bin
     (convert.export_consistentid_checkpoint)."""
+    use_linear = cfg.is_sdxl
     n = len(cfg.block_out_channels)
     out: Dict[str, np.ndarray] = {}
     _conv(tree["conv_in"], "conv_in", out)
@@ -99,6 +101,11 @@ def unet_to_diffusers(tree, cfg) -> Dict[str, np.ndarray]:
     _linear(tree["time_embedding"]["linear_2"], "time_embedding.linear_2", out)
     _norm(tree["conv_norm_out"], "conv_norm_out", out)
     _conv(tree["conv_out"], "conv_out", out)
+    if use_linear:
+        _linear(tree["add_embedding"]["linear_1"],
+                "add_embedding.linear_1", out)
+        _linear(tree["add_embedding"]["linear_2"],
+                "add_embedding.linear_2", out)
 
     for level in range(n):
         p = f"down_blocks.{level}"
@@ -107,7 +114,8 @@ def unet_to_diffusers(tree, cfg) -> Dict[str, np.ndarray]:
             if cfg.down_block_has_attn[level]:
                 _transformer2d(tree[f"down_{level}_attn_{j}"],
                                f"{p}.attentions.{j}", out,
-                               cfg.transformer_layers_per_block[level])
+                               cfg.transformer_layers_per_block[level],
+                               use_linear)
         if level < n - 1:
             _conv(tree[f"down_{level}_downsample"]["conv"],
                   f"{p}.downsamplers.0.conv", out)
@@ -115,7 +123,7 @@ def unet_to_diffusers(tree, cfg) -> Dict[str, np.ndarray]:
     _resnet(tree["mid_resnet_0"], "mid_block.resnets.0", out)
     _resnet(tree["mid_resnet_1"], "mid_block.resnets.1", out)
     _transformer2d(tree["mid_attn"], "mid_block.attentions.0", out,
-                   cfg.mid_transformer_depth)
+                   cfg.mid_transformer_depth, use_linear)
 
     for i in range(n):
         level = n - 1 - i
@@ -125,7 +133,8 @@ def unet_to_diffusers(tree, cfg) -> Dict[str, np.ndarray]:
             if cfg.down_block_has_attn[level]:
                 _transformer2d(tree[f"up_{i}_attn_{j}"],
                                f"{p}.attentions.{j}", out,
-                               cfg.transformer_layers_per_block[level])
+                               cfg.transformer_layers_per_block[level],
+                               use_linear)
         if i < n - 1:
             _conv(tree[f"up_{i}_upsample"]["conv"],
                   f"{p}.upsamplers.0.conv", out)

@@ -1,9 +1,10 @@
 """Carry the JAX package's parameters into the port.
 
 `params_from_jax` walks a flax parameter tree of numpy arrays (any nesting
-of mappings, e.g. the bundle's {"unet": ..., "vae": ...}) and returns the
-port's state dict. Module names are the same on both sides; only the leaves
-change:
+of mappings, e.g. the bundle's {"unet": ..., "vae": ...}, or the SDXL
+bundle's with "text_encoder_2", the UNet's "add_embedding" and linear
+transformer projections) and returns the port's state dict. Module names
+are the same on both sides; only the leaves change:
   - Dense kernel (in, out)      -> Linear weight (out, in)
   - Conv kernel HWIO            -> Conv2d weight OIHW
   - norm scale, Embed embedding -> weight

@@ -1,4 +1,4 @@
-"""Shared layers of the SD1.5 UNet (float path).
+"""Shared layers of the SD1.5 and SDXL UNets (float path).
 
 Counterparts of the JAX package's models/layers.py. Submodules carry the
 flax parameter names (`conv1`, `attn1.to_q`, `to_q_lora.down`, ...), so a
@@ -215,34 +215,46 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer (SD1.5 layout: 1x1 conv in/out) around `depth`
-    BasicTransformerBlocks, registered as blocks_0, blocks_1, ..."""
+    """Spatial transformer around `depth` BasicTransformerBlocks, registered
+    as blocks_0, blocks_1, ...; its in/out projections are 1x1 convolutions
+    (SD1.5) or, with use_linear_projection, linears over the flattened
+    tokens (SDXL)."""
 
     def __init__(self, channels: int, heads: int, context_dim: int,
                  depth: int = 1, groups: int = 32, lora_rank: int = 0,
-                 ip_num_tokens: int = 0):
+                 ip_num_tokens: int = 0, use_linear_projection: bool = False):
         super().__init__()
         self.depth = depth
+        self.use_linear = use_linear_projection
         self.norm = nn.GroupNorm(groups, channels, eps=GN_EPS_TRANSFORMER)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        proj = ((lambda: nn.Linear(channels, channels))
+                if use_linear_projection
+                else (lambda: nn.Conv2d(channels, channels, 1)))
+        self.proj_in = proj()
         for i in range(depth):
             self.add_module(f"blocks_{i}", BasicTransformerBlock(
                 channels, heads, context_dim, lora_rank=lora_rank,
                 ip_num_tokens=ip_num_tokens))
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x, context, lora_scale=1.0, ip_scale=1.0,
                 capture_probs=False, capture_idx=None):
         """With capture_probs, returns (out, {"blocks_i": probs})."""
         b, c, hh, ww = x.shape
-        h = self.proj_in(self.norm(x))
+        h = self.norm(x)
+        if not self.use_linear:
+            h = self.proj_in(h)
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        if self.use_linear:
+            h = self.proj_in(h)
         captured = {}
         for i in range(self.depth):
             h = getattr(self, f"blocks_{i}")(h, context, lora_scale, ip_scale,
                                              capture_probs, capture_idx)
             if capture_probs:
                 h, captured[f"blocks_{i}"] = h
+        if self.use_linear:
+            h = self.proj_out(h)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
-        out = self.proj_out(h) + x
+        out = (h if self.use_linear else self.proj_out(h)) + x
         return (out, captured) if capture_probs else out

@@ -275,4 +275,5 @@ def make_face_detector(state: Mapping[str, torch.Tensor],
                 (box / scale).cpu().numpy())
 
     detect.model = model
+    detect.input_size = input_size
     return detect

@@ -1,9 +1,12 @@
-"""SD1.5 UNet (UNet2DConditionModel layout) with the ConsistentID adapter
-hooks: LoRA on every attention projection and decoupled-IP cross-attention.
+"""SD UNet (UNet2DConditionModel layout, SD1.5 and SDXL) with the
+ConsistentID adapter hooks: LoRA on every attention projection and
+decoupled-IP cross-attention.
 
-Counterpart of the JAX package's models/unet.py at the SD1.5 layout, without
-the DeepCache split, ControlNet residuals or SDXL text_time embeddings. The
-public forward takes and returns NHWC latents and runs NCHW inside.
+Counterpart of the JAX package's models/unet.py, without the DeepCache split
+or ControlNet residuals. The SDXL layout (`addition_embed_type="text_time"`)
+adds the pooled-text and time-ids embedding to the time embedding and takes
+linear transformer projections. The public forward takes and returns NHWC
+latents and runs NCHW inside.
 
 Attention-probability capture for the facial localization loss follows the
 JAX package: `capture_layers` names blocks of UNET_LAYER_NAMES (`up_i` counts
@@ -14,7 +17,7 @@ tensors are; training.losses.collect_attn_probs orders them as it does.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,10 +51,14 @@ class UNet(nn.Module):
             return Transformer2D(
                 boc[level], cfg.num_attention_heads[level],
                 cfg.cross_attention_dim, depth=depth, groups=groups,
-                lora_rank=cfg.lora_rank, ip_num_tokens=cfg.ip_num_tokens)
+                lora_rank=cfg.lora_rank, ip_num_tokens=cfg.ip_num_tokens,
+                use_linear_projection=cfg.is_sdxl)
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], temb)
+        if cfg.is_sdxl:
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb)
 
         skip_ch = [boc[0]]
         ch = boc[0]
@@ -93,11 +100,13 @@ class UNet(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, lora_scale: float = 1.0,
                 ip_scale: float = 1.0, capture_layers: Sequence[str] = (),
-                capture_cols: Optional[torch.Tensor] = None):
+                capture_cols: Optional[torch.Tensor] = None,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None):
         """sample (B, H, W, C) latents, timesteps (B,) or scalar, context
         (B, L + ip_num_tokens, cross_attention_dim) -> (B, H, W, C_out);
         with capture_layers, (out, {module path: probs (B, H, Sq, N or K)
-        fp32})."""
+        fp32}). The SDXL layout needs added_cond {"text_embeds": (B, Dp)
+        pooled text, "time_ids": (B, 6)}."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         n = len(cfg.block_out_channels)
@@ -106,6 +115,17 @@ class UNet(nn.Module):
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
+        if cfg.is_sdxl:
+            if added_cond is None:
+                raise ValueError("the SDXL UNet needs added_cond "
+                                 "(text_embeds, time_ids)")
+            time_ids = added_cond["time_ids"]
+            t_emb = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                cfg.flip_sin_to_cos, cfg.freq_shift)
+            add = torch.cat([added_cond["text_embeds"].float(),
+                             t_emb.reshape(time_ids.shape[0], -1)], dim=-1)
+            temb = temb + self.add_embedding(add.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
 
         captured = {}

@@ -87,31 +87,36 @@ class SD15Bundle(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.unet_config = unet_config
-        self.adapter_config = a = adapter_config
+        self.adapter_config = adapter_config
         self.vae_config = vae_config
         self.text_config = text_config
         self.vision_config = vision_config
         with torch.device("meta"):
-            self.unet = UNet(unet_config)
-            self.vae = AutoencoderKL(vae_config)
-            self.text_encoder = CLIPTextEncoder(text_config)
-            self.image_encoder = CLIPVisionEncoder(vision_config)
-            self.proj = ProjPlusModel(
-                cross_attention_dim=a.cross_attention_dim,
-                id_embeddings_dim=a.id_embeddings_dim,
-                clip_embeddings_dim=a.clip_embeddings_dim,
-                num_tokens=a.num_id_tokens)
-            self.facial_encoder = FacialEncoder(
-                embedding_dim=a.clip_embeddings_dim,
-                output_dim=a.facial_output_dim,
-                embed_dim=a.cross_attention_dim,
-                facial_dim=a.facial_dim, facial_depth=a.facial_depth,
-                facial_heads=a.facial_heads,
-                facial_dim_head=a.facial_dim_head)
+            self._make_modules()
         self.to_empty(device=device)
         self.to(resolve_dtype(dtype))
         self.requires_grad_(False)
         self.init_params(torch.Generator(device).manual_seed(seed))
+
+    def _make_modules(self) -> None:
+        """Build the submodules (on the meta device, from the configs)."""
+        a = self.adapter_config
+        self.unet = UNet(self.unet_config)
+        self.vae = AutoencoderKL(self.vae_config)
+        self.text_encoder = CLIPTextEncoder(self.text_config)
+        self.image_encoder = CLIPVisionEncoder(self.vision_config)
+        self.proj = ProjPlusModel(
+            cross_attention_dim=a.cross_attention_dim,
+            id_embeddings_dim=a.id_embeddings_dim,
+            clip_embeddings_dim=a.clip_embeddings_dim,
+            num_tokens=a.num_id_tokens)
+        self.facial_encoder = FacialEncoder(
+            embedding_dim=a.clip_embeddings_dim,
+            output_dim=a.facial_output_dim,
+            embed_dim=a.cross_attention_dim,
+            facial_dim=a.facial_dim, facial_depth=a.facial_depth,
+            facial_heads=a.facial_heads,
+            facial_dim_head=a.facial_dim_head)
 
     @property
     def device(self) -> torch.device:
@@ -215,11 +220,12 @@ class ConsistentIDPipeline:
 
     # ---------------- host-side prepare ----------------
 
-    def _tokenize_padded(self, text: str) -> np.ndarray:
-        ids = list(self.tokenizer.encode(text))[
-            :self.tokenizer.model_max_length]
-        ids += [self.tokenizer.pad_token_id] * (
-            self.tokenizer.model_max_length - len(ids))
+    def _tokenize_padded(self, text: str, tokenizer=None) -> np.ndarray:
+        """(1, model_max_length) ids of `text`, truncated or padded with the
+        tokenizer's pad id (by default the pipeline's tokenizer)."""
+        tok = tokenizer or self.tokenizer
+        ids = list(tok.encode(text))[:tok.model_max_length]
+        ids += [tok.pad_token_id] * (tok.model_max_length - len(ids))
         return np.asarray(ids, np.int64)[None]
 
     def prepare_conditioning(
@@ -263,6 +269,10 @@ class ConsistentIDPipeline:
             prompt_face = prompt
         prompt_text_only = prompt_face.replace("<|facial|>", "").replace(
             "<|image|>", "")
+        # recorded for the dual-tokenizer SDXL pipeline, which re-tokenizes
+        # them with its second tokenizer
+        self._last_prompt_face = prompt_face
+        self._last_prompt_text_only = prompt_text_only
 
         clean_ids, img_mask, fac_mask = tokenize_and_mask_trigger_ends(
             prompt_face, None, self._facial_token_id, self.tokenizer)
@@ -314,13 +324,25 @@ class ConsistentIDPipeline:
         """(null, augmented, text_only) context embeddings,
         (B, 77 + num_id_tokens, D) each."""
         b = self.bundle
-        a = b.adapter_config
-        dtype = b.dtype
         enc_marked, _ = b.text_encoder(cond["clean_ids"])
         enc_text_only, _ = b.text_encoder(cond["text_only_ids"])
         enc_negative, _ = b.text_encoder(cond["negative_ids"])
+        fused, uncond_fused, faceid_tokens, uncond_faceid_tokens = \
+            self._adapter_tokens(cond, enc_marked, enc_negative)
+        augmented = torch.cat([fused, faceid_tokens], dim=1)
+        null = torch.cat([uncond_fused, uncond_faceid_tokens], dim=1)
+        text_only = torch.cat([enc_text_only, faceid_tokens], dim=1)
+        return null, augmented, text_only
 
-        # one batched ViT pass: [face x B, zeros, regions x B*5]
+    def _adapter_tokens(self, cond: Dict[str, torch.Tensor],
+                        enc_marked: torch.Tensor, enc_negative: torch.Tensor):
+        """The adapters' outputs: the FacialEncoder's fused prompt states
+        for the marked and the negative prompt, and the ID tokens of the
+        face and of the zero image. One batched ViT-H pass over [face x B,
+        zeros, regions x B*5] feeds both."""
+        b = self.bundle
+        a = b.adapter_config
+        dtype = b.dtype
         size = b.vision_config.image_size
         bs, n_regions = cond["region_pixels"].shape[:2]
         face = cond["face_pixels"].to(dtype)
@@ -345,11 +367,17 @@ class ConsistentIDPipeline:
                        cond["facial_idx"], cond["facial_idx_mask"])
         uncond_fused = b.call(b.facial_encoder, enc_negative, zero_regions,
                               cond["facial_idx"], cond["facial_idx_mask"])
+        return fused, uncond_fused, faceid_tokens, uncond_faceid_tokens
 
-        augmented = torch.cat([fused, faceid_tokens], dim=1)
-        null = torch.cat([uncond_fused, uncond_faceid_tokens], dim=1)
-        text_only = torch.cat([enc_text_only, faceid_tokens], dim=1)
-        return null, augmented, text_only
+    def _branches(self, cond: Dict[str, torch.Tensor]):
+        """(text-only branch, facial branch, time_ids) of the denoise loop;
+        SD1.5: one null for both, no pooled embeddings or time ids."""
+        null_e, aug_e, text_e = self.encode_embeddings(cond)
+        return (CondBranch(context=text_e, null=null_e),
+                CondBranch(context=aug_e, null=null_e), None)
+
+    def _decode(self, final: torch.Tensor) -> torch.Tensor:
+        return self.bundle.vae.decode(final)
 
     @torch.no_grad()
     def _generate_core(self, cond: Dict[str, torch.Tensor],
@@ -360,31 +388,36 @@ class ConsistentIDPipeline:
                        noise: Optional[torch.Tensor] = None,
                        sync_stages: bool = True) -> torch.Tensor:
         """Encode + denoise + decode from injected NHWC latents; returns the
-        decoded NHWC images in [-1, 1] (bundle dtype). `generator` or
-        `noise` feed an ancestral sampler (`denoise`). With `sync_stages`
-        the stage times land in `last_stage_ms` (synchronising at stage
-        boundaries on the card); without, nothing waits for the card."""
+        decoded NHWC images in [-1, 1] (the decoder's dtype). `generator`
+        or `noise` feed an ancestral sampler (`denoise`). With
+        `sync_stages` the stage times land in `last_stage_ms`
+        (synchronising at stage boundaries on the card); without, nothing
+        waits for the card."""
         clock = _StageClock(latents.device, sync_stages)
-        null_e, aug_e, text_e = self.encode_embeddings(cond)
+        text_b, facial_b, time_ids = self._branches(cond)
         n = latents.shape[0]
-        if null_e.shape[0] != n:
-            null_e, aug_e, text_e = (
-                e.repeat_interleave(n // e.shape[0], dim=0)
-                for e in (null_e, aug_e, text_e))
+        if text_b.context.shape[0] != n:
+            # num_images_per_prompt: each request's conditioning repeated
+            def rep(e):
+                return (None if e is None
+                        else e.repeat_interleave(n // e.shape[0], dim=0))
+            text_b, facial_b = (
+                CondBranch(*(rep(getattr(b, f.name))
+                             for f in dataclasses.fields(b)))
+                for b in (text_b, facial_b))
+            time_ids = rep(time_ids)
         clock.mark("encode")
         plan = make_plan(self.schedule, scheduler, num_steps)
         unet = self.bundle.infer_unet(lora_scale)
 
-        def unet_fn(x, t, context):
-            return unet(x, t, context, ip_scale=ip_scale)
+        def unet_fn(x, t, context, added=None):
+            return unet(x, t, context, ip_scale=ip_scale, added_cond=added)
 
-        final = denoise(unet_fn, latents,
-                        CondBranch(context=text_e, null=null_e),
-                        CondBranch(context=aug_e, null=null_e),
-                        plan, guidance_scale, start_merge_step,
-                        generator=generator, noise=noise)
+        final = denoise(unet_fn, latents, text_b, facial_b, plan,
+                        guidance_scale, start_merge_step,
+                        generator=generator, noise=noise, time_ids=time_ids)
         clock.mark("denoise")
-        images = self.bundle.vae.decode(final)
+        images = self._decode(final)
         clock.mark("decode")
         self.last_stage_ms = clock.stages
         return images

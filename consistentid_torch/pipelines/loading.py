@@ -4,16 +4,19 @@ reference's load_ConsistentID_model,
 pipline_StableDiffusion_ConsistentID.py:36-150), with no download.
 
 Expected inputs (all local paths):
-  base_dir/            diffusers-format SD1.5 dump with subfolders
+  base_dir/            diffusers-format SD1.5 or SDXL dump with subfolders
     unet/diffusion_pytorch_model.safetensors
     vae/diffusion_pytorch_model.safetensors
     text_encoder/model.safetensors
+    text_encoder_2/model.safetensors   (SDXL: OpenCLIP bigG)
     tokenizer/vocab.json, merges.txt   (else a warned word-hash fallback)
-    safety_checker/                    (optional; config.json read)
+    tokenizer_2/                       (SDXL; its declared pad token read)
+    safety_checker/                    (SD1.5, optional; config.json read)
   image_encoder.safetensors  CLIP ViT-H vision tower
   ConsistentID-v1.bin        adapter checkpoint (torch pickle or
                              safetensors with the reference's
-                             {FacialEncoder, image_proj, adapter_modules})
+                             {FacialEncoder, image_proj, adapter_modules};
+                             SDXL's names image_proj_model)
   face_parsing.pth           BiSeNet weights
   arcface (.onnx or .pt)     iresnet recognition backbone
   scrfd (.onnx or .pt)       SCRFD detector (optional)
@@ -37,7 +40,7 @@ from torch import nn
 
 from ..conditioning import CLIPBPETokenizer, SimpleTokenizer
 from ..core.config import (AdapterConfig, CLIPVisionConfig, PipelineConfig,
-                           sd15_unet_config)
+                           VAEConfig, sd15_unet_config, sdxl_unet_config)
 from ..core.dtypes import resolve_device, resolve_dtype
 from ..io import convert
 from ..io.convert_backbones import (clip_text_from_hf, clip_vision_from_hf,
@@ -51,6 +54,8 @@ from ..models.safety_checker import SAFETY_VISION_CONFIG, make_safety_checker
 from ..models.scrfd import make_face_detector
 from ..training.train_step import warm_start_ip_projections
 from .consistentid_sd15 import ConsistentIDPipeline, SD15Bundle
+from .consistentid_sdxl import (ConsistentIDXLPipeline, SDXLBundle,
+                                sdxl_adapter_config)
 
 
 def _read_maybe_onnx(path: str) -> Dict[str, np.ndarray]:
@@ -105,7 +110,7 @@ def load_face_stack(bisenet_path: Optional[str] = None,
     """(face_parser, face_embedder) hooks from local checkpoint files: the
     reference's BiSeNet and FaceAnalysis (SCRFD detect -> align -> ArcFace)
     stack (pipline_StableDiffusion_ConsistentID.py:63-71,217-226), the
-    models in fp32 on `device`. det_size: 640 for SD1.5."""
+    models in fp32 on `device`. det_size: 640 for SD1.5, 512 for SDXL."""
     face_parser = face_embedder = None
     if bisenet_path:
         params, stats = convert.bisenet_from_torch(
@@ -128,6 +133,31 @@ def load_face_stack(bisenet_path: Optional[str] = None,
             allow_center_crop=allow_center_crop or detector is None,
             device=device)
     return face_parser, face_embedder
+
+
+def _load_models(bundle: SD15Bundle, base_dir: str,
+                 consistentid_path: Optional[str],
+                 image_encoder_path: Optional[str]) -> None:
+    """The dump's UNet (IP projections warm-started from the base ones),
+    VAE and text encoders, the image encoder and the adapter checkpoint
+    into the bundle."""
+    _load_tree(bundle.unet, unet_from_diffusers(
+        read_checkpoint(os.path.join(base_dir, "unet")), bundle.unet_config))
+    warm_start_ip_projections(bundle.unet)
+    _load_tree(bundle.vae, vae_from_diffusers(
+        read_checkpoint(os.path.join(base_dir, "vae")), bundle.vae_config))
+    towers = [("text_encoder", bundle.text_config)]
+    if bundle.unet_config.is_sdxl:
+        towers.append(("text_encoder_2", bundle.text_config_2))
+    for sub, cfg in towers:
+        _load_tree(getattr(bundle, sub), clip_text_from_hf(
+            read_checkpoint(os.path.join(base_dir, sub)), cfg))
+    if image_encoder_path:
+        _load_tree(bundle.image_encoder, clip_vision_from_hf(
+            read_checkpoint(image_encoder_path), bundle.vision_config))
+    if consistentid_path:
+        _load_tree(bundle, convert.consistentid_checkpoint_tree(
+            read_checkpoint(consistentid_path), bundle.unet_config))
 
 
 @torch.no_grad()
@@ -174,21 +204,7 @@ def load_sd15_consistentid(
             adapter_config=AdapterConfig(num_id_tokens=num_tokens),
             dtype=resolve_dtype(dtype), device=resolve_device(device))
     device = bundle.device
-
-    _load_tree(bundle.unet, unet_from_diffusers(
-        read_checkpoint(os.path.join(base_dir, "unet")), bundle.unet_config))
-    warm_start_ip_projections(bundle.unet)
-    _load_tree(bundle.vae, vae_from_diffusers(
-        read_checkpoint(os.path.join(base_dir, "vae")), bundle.vae_config))
-    _load_tree(bundle.text_encoder, clip_text_from_hf(
-        read_checkpoint(os.path.join(base_dir, "text_encoder")),
-        bundle.text_config))
-    if image_encoder_path:
-        _load_tree(bundle.image_encoder, clip_vision_from_hf(
-            read_checkpoint(image_encoder_path), bundle.vision_config))
-    if consistentid_path:
-        _load_tree(bundle, convert.consistentid_checkpoint_tree(
-            read_checkpoint(consistentid_path), bundle.unet_config))
+    _load_models(bundle, base_dir, consistentid_path, image_encoder_path)
 
     face_parser, face_embedder = load_face_stack(
         bisenet_path, arcface_path, scrfd_path, det_size=640, device=device)
@@ -214,3 +230,47 @@ def load_sd15_consistentid(
 
 # the reference's method name
 load_ConsistentID_model = load_sd15_consistentid
+
+
+def load_sdxl_consistentid(
+    base_dir: str,
+    consistentid_path: Optional[str] = None,
+    image_encoder_path: Optional[str] = None,
+    bisenet_path: Optional[str] = None,
+    arcface_path: Optional[str] = None,
+    scrfd_path: Optional[str] = None,
+    tokenizer=None,
+    tokenizer_2=None,
+    dtype: Union[str, torch.dtype] = torch.bfloat16,
+    lora_rank: int = 128,
+    num_tokens: int = 4,
+    pipeline_config: Optional[PipelineConfig] = None,
+    bundle: Optional[SDXLBundle] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> ConsistentIDXLPipeline:
+    """The SDXL ConsistentID pipeline from local checkpoints, on `device`
+    (the JAX package's load_sdxl_consistentid; reference
+    pipline_StableDiffusionXL_ConsistentID.py:104-176): the dump's
+    text_encoder_2 and tokenizer_2 besides SD1.5's files, the VAE decoding
+    in fp32 (force_upcast, scaling factor 0.13025), the face stack's
+    detector at 512, no safety checker. bundle: as for
+    `load_sd15_consistentid` (e.g. `testing.tiny_sdxl_bundle`)."""
+    if bundle is None:
+        bundle = SDXLBundle(
+            unet_config=sdxl_unet_config(lora_rank=lora_rank,
+                                         ip_num_tokens=num_tokens),
+            adapter_config=sdxl_adapter_config(num_id_tokens=num_tokens),
+            vae_config=VAEConfig(scaling_factor=0.13025, force_upcast=True),
+            dtype=resolve_dtype(dtype), device=resolve_device(device))
+    _load_models(bundle, base_dir, consistentid_path, image_encoder_path)
+    face_parser, face_embedder = load_face_stack(
+        bisenet_path, arcface_path, scrfd_path, det_size=512,
+        device=bundle.device)
+    if tokenizer is None:
+        tokenizer = _default_tokenizer(base_dir)
+    if tokenizer_2 is None:
+        tokenizer_2 = _default_tokenizer(base_dir, subfolder="tokenizer_2")
+    return ConsistentIDXLPipeline(
+        bundle, tokenizer, tokenizer_2=tokenizer_2,
+        pipeline_config=pipeline_config, face_parser=face_parser,
+        face_embedder=face_embedder)

@@ -3,8 +3,10 @@ over the sampler plan (the JAX package runs the same steps as a lax.scan,
 sampling/sampler.py).
 
 While i <= start_merge_step the text-only branch conditions the UNet, the
-facial-augmented branch afterwards. CFG batches [negative, positive] into
-one UNet call; eps = eps_uncond + g * (eps_cond - eps_uncond). The step
+facial-augmented branch afterwards; each branch carries its own positive and
+negative context and, for SDXL, pooled embeddings, all switched together
+(reference SDXL :619-628). CFG batches [negative, positive] into one UNet
+call; eps = eps_uncond + g * (eps_cond - eps_uncond). The step
 that follows is the plan's: affine (DDIM, Euler, DDPM with its ancestral
 noise), DPM-Solver++(2M) with the previous x0, or PNDM (PLMS) with the eps
 history and the held warm-up sample.
@@ -22,10 +24,12 @@ from .schedulers import SamplerPlan
 @dataclass
 class CondBranch:
     """One conditioning branch: positive and negative embeddings
-    (B, L, D)."""
+    (B, L, D), and for SDXL the pooled positive and negative (B, Dp)."""
 
     context: torch.Tensor
     null: torch.Tensor
+    pooled: Optional[torch.Tensor] = None
+    pooled_null: Optional[torch.Tensor] = None
 
 
 def denoise(unet_fn: Callable, latents: torch.Tensor,
@@ -33,9 +37,12 @@ def denoise(unet_fn: Callable, latents: torch.Tensor,
             plan: SamplerPlan, guidance_scale: float,
             start_merge_step: int,
             generator: Optional[torch.Generator] = None,
-            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """unet_fn(latents, t, context) -> eps, NHWC. Returns the final
-    (scaled-space) latents in fp32.
+            noise: Optional[torch.Tensor] = None,
+            time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """unet_fn(latents, t, context) -> eps, NHWC; with pooled branches
+    (SDXL) unet_fn(latents, t, context, added), added = {"text_embeds":
+    [pooled_null; pooled] of the step's branch, "time_ids": (2B, 6)
+    `time_ids` twice}. Returns the final (scaled-space) latents in fp32.
 
     An ancestral plan (DDPM: coef_n != 0) adds coef_n[i] z_i at step i:
     z_i drawn from `generator` on the latents' device, or taken from
@@ -45,6 +52,11 @@ def denoise(unet_fn: Callable, latents: torch.Tensor,
     contexts = {
         branch_id: torch.cat([b.null, b.context], dim=0)
         for branch_id, b in ((0, text_branch), (1, facial_branch))}
+    pooled = None
+    if text_branch.pooled is not None:
+        pooled = {branch_id: torch.cat([b.pooled_null, b.pooled], dim=0)
+                  for branch_id, b in ((0, text_branch), (1, facial_branch))}
+        time_ids2 = torch.cat([time_ids, time_ids], dim=0)
     needs_noise = bool((plan.coef_n != 0).any())
     if needs_noise and noise is None and generator is None:
         raise ValueError("an ancestral sampler needs a generator or noise")
@@ -52,11 +64,16 @@ def denoise(unet_fn: Callable, latents: torch.Tensor,
     if plan.kind == "pndm":
         e_hist = [torch.zeros_like(x)] * 3
     for i in range(plan.num_steps):
-        context = contexts[0 if i <= start_merge_step else 1]
+        branch = 0 if i <= start_merge_step else 1
         latent_in = torch.cat([x, x], dim=0) * float(plan.c_in[i])
         t = torch.full((latent_in.shape[0],), float(plan.timesteps[i]),
                        device=x.device, dtype=torch.float32)
-        eps_uncond, eps_cond = unet_fn(latent_in, t, context).float().chunk(2)
+        if pooled is None:
+            eps = unet_fn(latent_in, t, contexts[branch])
+        else:
+            eps = unet_fn(latent_in, t, contexts[branch], {
+                "text_embeds": pooled[branch], "time_ids": time_ids2})
+        eps_uncond, eps_cond = eps.float().chunk(2)
         eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
         if plan.kind == "dpmpp_2m":
             x0 = (x - float(plan.c_sigma[i]) * eps) / float(plan.c_alpha[i])

@@ -1,7 +1,8 @@
 """Tiny random-weight bundles, random perception weights and a synthetic
 tokenizer for tests and smoke runs, and the limits the card checks hold the
-kernels and the perception models to. `tiny_bundle` has the sizes of the JAX
-package's tiny SD1.5 bundle, so the same parameters load into both."""
+kernels and the perception models to. `tiny_bundle` and `tiny_sdxl_bundle`
+have the sizes of the JAX package's tiny SD1.5 and SDXL bundles, so the same
+parameters load into both."""
 from __future__ import annotations
 
 import math
@@ -221,6 +222,50 @@ def tiny_bundle(device: Union[str, torch.device] = "cuda",
                              norm_num_groups=8),
         text_config=CLIPTextConfig(hidden_size=64, intermediate_size=128,
                                    num_layers=2, num_heads=2),
+        vision_config=CLIPVisionConfig(image_size=28, patch_size=14,
+                                       hidden_size=32, intermediate_size=64,
+                                       num_layers=2, num_heads=2),
+        dtype=dtype, device=device, seed=seed)
+
+
+def tiny_sdxl_bundle(device: Union[str, torch.device] = "cuda",
+                     dtype: torch.dtype = torch.float32, seed: int = 0,
+                     force_upcast: bool = False):
+    """A complete SDXL ConsistentID bundle at toy scale (random weights):
+    three UNet levels, the first without attention, linear transformer
+    projections and the text_time embedding, two text towers (the second
+    with gelu) whose penultimate states concatenate to the 96-wide
+    context."""
+    from .pipelines import SDXLBundle
+
+    return SDXLBundle(
+        unet_config=UNetConfig(
+            block_out_channels=(32, 64, 64),
+            layers_per_block=1,
+            down_block_has_attn=(False, True, True),
+            transformer_layers_per_block=(0, 1, 2),
+            mid_transformer_depth=2,
+            num_attention_heads=(2, 2, 4),
+            cross_attention_dim=96,          # 32 + 64 dual-tower concat
+            norm_num_groups=8,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=8 * 6 + 64,
+            lora_rank=4,
+            ip_num_tokens=4,
+        ),
+        adapter_config=AdapterConfig(
+            cross_attention_dim=96, id_embeddings_dim=16,
+            clip_embeddings_dim=32, facial_dim=64, facial_depth=2,
+            facial_heads=2, facial_output_dim=96, shortcut=True),
+        vae_config=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                             norm_num_groups=8, scaling_factor=0.13025,
+                             force_upcast=force_upcast),
+        text_config=CLIPTextConfig(hidden_size=32, intermediate_size=64,
+                                   num_layers=2, num_heads=2),
+        text_config_2=CLIPTextConfig(hidden_size=64, intermediate_size=128,
+                                     num_layers=2, num_heads=2,
+                                     hidden_act="gelu"),
         vision_config=CLIPVisionConfig(image_size=28, patch_size=14,
                                        hidden_size=32, intermediate_size=64,
                                        num_layers=2, num_heads=2),

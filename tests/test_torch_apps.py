@@ -73,7 +73,6 @@ def test_infer_cli_reads_npy_face(synth, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--sdxl"], "A5"), (["--tokenizer-2", "x"], "A5"),
     (["--init-image", "x.png"], "A6"), (["--mask-image", "x.png"], "A6"),
     (["--strength", "0.5"], "A6"), (["--quant", "int8"], "A9"),
     (["--quant", "int8_static"], "A9"), (["--act-scales", "s.npz"], "A9"),

@@ -5,8 +5,9 @@ K3 + K4 (sm90, mma or f32) asserted from the launch counts; the autograd
 Function's gradients through the kernels against those through the plain
 versions; what the wrappers refuse; two perception networks on the card
 against the CPU; the fused backward's bits over repeated calls; the
-pipeline's async batch. Needs an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it runs on a
-machine without it:
+pipeline's async batch; the tiny SDXL generate on the card against the
+CPU. Needs an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it
+runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
@@ -59,6 +60,9 @@ def cuda_generator():
     # the infer CLI's default 768x512 at one image: UNet levels 0 and 1
     ((2, 8, 6144, 40), 6144, torch.bfloat16, 1e-2),
     ((2, 8, 1536, 80), 1536, torch.bfloat16, 1e-2),
+    # SDXL at 1024x1024, one image: level 1 (X1), level 2 and mid (X2)
+    ((2, 10, 4096, 64), 4096, torch.bfloat16, 1e-2),
+    ((2, 20, 1024, 64), 1024, torch.bfloat16, 1e-2),
 ])
 def test_kernel_matches_plain(cuda_generator, shape, sk, dtype, atol):
     g = cuda_generator
@@ -331,6 +335,55 @@ def test_generate_batch_async_matches_generate_batch(cuda_generator):
     got = pipe.generate_batch_async(prompts, faces, **kw)()
     assert got.shape == (2, 64, 64, 3) and got.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_tiny_sdxl_generate_card_vs_cpu(cuda_generator):
+    """The tiny fp32 SDXL bundle's generate core (4 DDIM steps across the
+    merge step at 2, 128 px: level 1's self-attention crosses the flash
+    cutover, 3 K1 launches per UNet call on the fp32 route; fp32 decode)
+    on the card, TF32 off, against the same bundle on the CPU: the CPU
+    parity tests' 1e-3 on images in [-1, 1]."""
+    import numpy as np
+
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import ConsistentIDXLPipeline
+    from consistentid_torch.testing import (synthetic_clip_tokenizer,
+                                            tiny_sdxl_bundle)
+
+    rng = np.random.default_rng(0)
+    face = rng.integers(0, 255, (64, 64, 3), np.uint8)
+    labels = np.zeros((64, 64), np.uint8)
+    labels[8:44, 10:50] = 1
+    labels[26:31, 28:34] = 10
+    faceid = rng.standard_normal((1, 16)).astype(np.float32)
+    latents = torch.from_numpy(rng.standard_normal((2, 64, 64, 4),
+                                                   np.float32))
+    cpu = tiny_sdxl_bundle(device="cpu", seed=3, force_upcast=True)
+    gpu = tiny_sdxl_bundle(device="cuda", force_upcast=True)
+    gpu.load_state_dict(cpu.state_dict())
+    wrapper = port_flash.flash_attention_fwd
+    outs = []
+    with tf32_off():
+        for bundle in (cpu, gpu):
+            pipe = ConsistentIDXLPipeline(
+                bundle, synthetic_clip_tokenizer(),
+                pipeline_config=PipelineConfig(height=128, width=128))
+            cond = pipe.device_cond(pipe.prepare_conditioning(
+                "a photo of a man", face, parsing_labels=labels,
+                faceid_embeds=faceid))
+            routes = dict(wrapper.launches_by_route)
+            img = pipe._generate_core(cond, latents.to(bundle.device), 7.5,
+                                      2, 4, "ddim", 1.0, 1.0)
+            torch.cuda.synchronize()
+            moved = {r: n - routes[r]
+                     for r, n in wrapper.launches_by_route.items()}
+            outs.append((img.cpu(), moved))
+    (cpu_img, cpu_moved), (gpu_img, gpu_moved) = outs
+    assert not any(cpu_moved.values())
+    assert gpu_moved == {r: 12 * (r == "f32") for r in gpu_moved}
+    assert gpu_img.dtype == torch.float32
+    torch.testing.assert_close(gpu_img, cpu_img, rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda
