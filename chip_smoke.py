@@ -90,8 +90,30 @@ Phases, each printing its result; any failure exits non-zero:
      packs already written, `apps.infer.main --sdxl` at 1024x1024, CFG
      7.5 from the PNG face: a (1024, 1024, 3) PNG, 3500 K1 launches on
      sm90, the float path finite and within one grey level of the PNG.
+ 18. the data-to-train loop through the CLIs (before phase 16, on the
+     SD1.5 set of phase 12): a corpus of 8 PNG faces at 512 px with BiSeNet
+     parsing maps, FaceID embeddings and captions; `apps.precompute.main`
+     encodes it on the card; `apps.train.main --encoded` takes 4 steps with
+     --steps-per-call 2 and checkpoints at steps 2 and 4; a second
+     `apps.train.main`, given the step-2 checkpoint, resumes to step 4 with
+     the first run's masters and AdamW moments bit for bit; a pixel-path
+     `apps.train.main` takes 2 steps; 10 K2 and K3 + K4 launches a step;
+ 19. SDXL training at full width on the bundle of phase 16 (after phase
+     17): its level-1 (T1) and level-2 (T2) self-attention under autograd
+     through the dispatch against fp32 autograd; then bf16 with fp32
+     masters, localization over 3 layers, 1024 px, batch 1: 1 warm-up and
+     3 timed steps without remat (remat "full" if that runs out of
+     memory), 2 steps with remat "full"; finite losses, every trainable
+     leaf moved, no frozen one; K2 and K3 + K4 70 launches a step on sm90
+     (K2 104 under remat); one step under torch.profiler;
+ 20. remat on the SD1.5 training path (after phase 7): one step each with
+     none, "full" and "dots" from one snapshot, on the same batch and
+     draws; the loss within 1e-5 and the masters within rtol 2e-4, atol
+     2e-6 of the step without; peak memory, time and K2 launches (15) of
+     each.
 Phase 9 runs after phase 3, phases 10 to 17 after phase 5 (before the
-bundle is trained).
+bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
+(1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
 Kernel times on the card are `cuda_ms`: CUDA events around calls the host
 queued behind a sleep kernel, so the host's time per call is not counted;
 the perception networks alone are timed by the same events without the
@@ -127,6 +149,13 @@ SFU_PER_S = 3.9e12
 # dq, dk, dv against that through the same-precision plain backward's):
 # just above the 1.9e-3 read on an H100, below the controls' 0.06 (PERF.md)
 UNET_LEAF_REL_L2 = 5e-3
+
+# bound of the SDXL attention check on the hidden state's gradient: dq, dk
+# and dv within the 16-bit kernel limit, carried through the bf16
+# projections' backward, which rounds each product once more (bf16's unit
+# roundoff 2^-8 relative); the first card reading was 4.37e-3 at T1, the
+# dropped-tile controls 0.108 and more
+SDXL_DX_REL_L2 = 4e-3 + 2 ** -8
 
 PROMPT = ("portrait photo of a man with a strong face, blue eyes, a sharp "
           "nose and a wide mouth")
@@ -509,8 +538,9 @@ def check_backward(name, q, k, v, do, lse, delta, tol):
 
 def train_kernel_phase():
     """K2 and K3 + K4 against their plain versions at the training shapes
-    (batch 2: level 0 (2, 8, 4096, 40), level 1 (2, 8, 1024, 80), bf16), at
-    a ragged bf16 shape and at two ragged fp32 shapes; times of kernel,
+    (batch 2: level 0 (2, 8, 4096, 40), level 1 (2, 8, 1024, 80), bf16; SDXL
+    at 1024 px, batch 1: T1 (1, 10, 4096, 64), T2 (1, 20, 1024, 64)), at a
+    ragged bf16 shape and at two ragged fp32 shapes; times of kernel,
     plain version and SDPA, at the training shapes also of the mma.sync
     kernels they replaced (K2's; K3's and K4's pair); dq's run-to-run
     difference at level 0; then both alone on the routes' edge cases
@@ -528,6 +558,10 @@ def train_kernel_phase():
     cases = [
         ("level0", (2, 8, 4096, 40), 4096, torch.bfloat16, 20),
         ("level1", (2, 8, 1024, 80), 1024, torch.bfloat16, 50),
+        # SDXL training at 1024 px, batch 1: level 1, and level 2 with the
+        # mid block
+        ("sdxl_T1", (1, 10, 4096, 64), 4096, torch.bfloat16, 20),
+        ("sdxl_T2", (1, 20, 1024, 64), 1024, torch.bfloat16, 50),
         ("ragged_bf16_d40", (2, 3, 1000, 40), 1037, torch.bfloat16, 10),
         ("ragged_fp32_d40", (2, 3, 1000, 40), 1037, torch.float32, 10),
         ("ragged_fp32_d80", (1, 4, 333, 80), 517, torch.float32, 10),
@@ -976,46 +1010,22 @@ def training_path(bundle):
                        trainable_params=n_train, steps=n_steps)
 
 
-def profile_train_step(bundle, state, top: int = 14):
-    """Device time of one training step by kernel (torch.profiler), and the
-    share of the step's wall time the card was busy."""
+def profile_train_step(bundle, state):
+    """profile_step on one SD1.5 training step (batch 2, 512 px)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from consistentid_torch.core import SchedulerConfig, TrainConfig
     from consistentid_torch.sampling import NoiseSchedule
     from consistentid_torch.training import make_train_step, synthetic_batch
     from consistentid_torch.training.train_step import batch_to_tensors
 
-    config = TrainConfig()
     step = make_train_step(bundle, NoiseSchedule.create(SchedulerConfig()),
-                           config)
+                           TrainConfig())
     batch = batch_to_tensors(synthetic_batch(
         2, 512, bundle.vision_config.image_size,
         bundle.adapter_config.id_embeddings_dim, seed=1), bundle.device)
-    gen = torch.Generator("cuda").manual_seed(5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, generator=gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not device_ms > 0:
-        raise AssertionError("the profiler recorded no device time")
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    rows = [dict(kernel=e.key[:90], calls=e.count,
-                 ms=e.self_device_time_total / 1e3,
-                 share=e.self_device_time_total / 1e3 / device_ms)
-            for e in kernels[:top]]
-    log(f"train step profile (bf16, batch 2, 512 px): wall {wall_ms:.3f} ms "
-        f"under the profiler, device busy {device_ms:.3f} ms")
-    for r in rows:
-        log(f"  {r['ms']:9.3f} ms {r['share']:6.1%} x{r['calls']:<4d} "
-            f"{r['kernel']}")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, top=rows)
+    return profile_step(step, state, batch,
+                        torch.Generator("cuda").manual_seed(5),
+                        "bf16, batch 2, 512 px")
 
 
 class Recorder:
@@ -2374,6 +2384,606 @@ def sdxl_infer_phase(bundle, sd15_paths, outdir):
                 launches_by_route=by_route, png_vs_float_path_max_diff=diff)
 
 
+def state_snapshot(state):
+    """A copy of a TrainState's state_dict (masters, AdamW moments and
+    count, step) to restore it from."""
+    return {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                else v) for k, v in state.state_dict().items()}
+
+
+def flash_self_attentions(unet, latent_hw: int, capture_layers):
+    """K2 calls of one UNet forward under autograd, worked out from the
+    UNet: one per transformer layer whose self-attention reaches the flash
+    cutover (Sq * Sk >= FLASH_MIN_ELEMS), and how many of them are in blocks
+    that rematerialisation recomputes (every block but those whose
+    attention probabilities are captured)."""
+    from consistentid_torch.models.layers import Transformer2D
+    from consistentid_torch.ops.attention import FLASH_MIN_ELEMS
+    n = len(unet.config.block_out_channels)
+    total = recomputed = 0
+    for name, mod in unet.named_children():
+        if not isinstance(mod, Transformer2D):
+            continue
+        if name == "mid_attn":
+            level, group = n - 1, "mid"
+        elif name.startswith("down_"):
+            level = int(name.split("_")[1])
+            group = f"down_{level}"
+        else:
+            i = int(name.split("_")[1])
+            level, group = n - 1 - i, f"up_{i}"
+        tokens = (latent_hw // 2 ** level) ** 2
+        if tokens * tokens < FLASH_MIN_ELEMS:
+            continue
+        total += mod.depth
+        if group not in capture_layers:
+            recomputed += mod.depth
+    return total, recomputed
+
+
+def profile_step(step, state, batch, gen, label, top: int = 14):
+    """Device time of one training step by kernel (torch.profiler), and the
+    share of the step's wall time the card was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not device_ms > 0:
+        raise AssertionError("the profiler recorded no device time")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    rows = [dict(kernel=e.key[:90], calls=e.count,
+                 ms=e.self_device_time_total / 1e3,
+                 share=e.self_device_time_total / 1e3 / device_ms)
+            for e in kernels[:top]]
+    log(f"train step profile ({label}): wall {wall_ms:.3f} ms under the "
+        f"profiler, device busy {device_ms:.3f} ms "
+        f"({device_ms / wall_ms:.1%})")
+    for r in rows:
+        log(f"  {r['ms']:9.3f} ms {r['share']:6.1%} x{r['calls']:<4d} "
+            f"{r['kernel']}")
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, top=rows)
+
+
+def fp32_attention(q, k, v):
+    """Differentiable attention in fp32 throughout, the output in q's
+    dtype: the plain autograd the kernels' gradients are held against."""
+    import torch
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def sdxl_train_attention_check(unet):
+    """One level-1 (T1) and one level-2 (T2) self-attention of the SDXL
+    UNet under autograd on the card: the block's own projections (LoRA
+    included) of a unit-normal hidden state (batch 1, 1024 px) through the
+    dispatch, which runs the flash Function (one K2 and one K3 + K4 launch
+    on sm90 each), against plain autograd through attention in fp32 (scores,
+    softmax and both products; the output cast back): the output and dq,
+    dk, dv, and the hidden state's gradient through the projections, by
+    relative L2 within the 16-bit limit; dq's control drops the last key
+    tile, dk's and dv's the last query tile."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.ops.attention import (dot_product_attention,
+                                                  split_heads)
+    from consistentid_torch.testing import (KERNEL_REL_L2_16BIT,
+                                            drop_last_tile, rel_l2)
+
+    dev = unet.conv_in.weight.device
+    gen = torch.Generator(dev).manual_seed(12)
+    rows = []
+    for name, attn, tokens in (
+            ("T1 level1", unet.down_1_attn_0.blocks_0.attn1, 4096),
+            ("T2 level2", unet.down_2_attn_0.blocks_0.attn1, 1024)):
+        dim = attn.to_q.in_features
+        dtype = attn.to_q.weight.dtype
+        x = torch.randn((1, tokens, dim), generator=gen, device=dev,
+                        dtype=dtype).requires_grad_(True)
+        q, k, v = (split_heads(attn._proj(p, x, 1.0), attn.heads)
+                   for p in ("to_q", "to_k", "to_v"))
+        do = torch.randn(q.shape, generator=gen, device=dev, dtype=dtype)
+        qkv = (q, k, v)
+
+        def grads(fn, rows_kept=None):
+            out = fn()
+            g = torch.autograd.grad(out, qkv, do if rows_kept is None
+                                    else do[:, :, :rows_kept],
+                                    retain_graph=True)
+            dx = torch.autograd.grad(qkv, x, g, retain_graph=True)[0]
+            return out, g, dx
+
+        wrappers = (fa.flash_attention_lse, fa.flash_attention_bwd)
+        before = [dict(w.launches_by_route) for w in wrappers]
+        out, g, dx = grads(lambda: dot_product_attention(q, k, v))
+        torch.cuda.synchronize()
+        moved = [{r: n - b[r] for r, n in w.launches_by_route.items()}
+                 for w, b in zip(wrappers, before)]
+        if moved != [{"sm90": 1, "mma": 0, "f32": 0}] * 2:
+            raise AssertionError(f"SDXL {name}: K2, K3 + K4 launches by "
+                                 f"route {moved}, expected one each on sm90")
+        ref_out, ref_g, ref_dx = grads(lambda: fp32_attention(q, k, v))
+        kc, qc = drop_last_tile(k.shape[2]), drop_last_tile(q.shape[2])
+        _, ctl_kv, _ = grads(lambda: fp32_attention(
+            q, k[:, :, :kc], v[:, :, :kc]))
+        _, ctl_q, _ = grads(lambda: fp32_attention(q[:, :, :qc], k, v),
+                            rows_kept=qc)
+        ctl_dx = torch.autograd.grad(qkv, x, (ctl_kv[0], *ctl_q[1:]),
+                                     retain_graph=True)[0]
+        readings = {}
+        for what, got, ref, ctl, limit in (
+                ("o", out, ref_out, None, KERNEL_REL_L2_16BIT),
+                ("dq", g[0], ref_g[0], ctl_kv[0], KERNEL_REL_L2_16BIT),
+                ("dk", g[1], ref_g[1], ctl_q[1], KERNEL_REL_L2_16BIT),
+                ("dv", g[2], ref_g[2], ctl_q[2], KERNEL_REL_L2_16BIT),
+                ("dx", dx, ref_dx, ctl_dx, SDXL_DX_REL_L2)):
+            rel = rel_l2(got, ref)
+            control = None if ctl is None else rel_l2(ctl, ref)
+            check(f"SDXL UNet {name} self-attention {what} under autograd",
+                  rel, control, limit)
+            readings[what] = (rel, control)
+        rows.append(dict(block=name, shape=list(q.shape),
+                         rel_l2={k: r for k, (r, _) in readings.items()},
+                         control_rel_l2={k: c for k, (_, c) in
+                                         readings.items() if c is not None}))
+        log(f"SDXL UNet {name} self-attention {tuple(q.shape)} under "
+            f"autograd (K2, K3 + K4 sm90) vs plain autograd: "
+            + ", ".join(f"{k} {r:.3g}" + ("" if c is None else
+                                          f" (control {c:.3g})")
+                        for k, (r, c) in readings.items())
+            + f"; limit {KERNEL_REL_L2_16BIT:g}, dx {SDXL_DX_REL_L2:.3g}")
+        del x, q, k, v, do, out, g, dx, ref_out, ref_g, ref_dx
+    return rows
+
+
+def sdxl_train_batch(bundle, seed: int = 0, px: int = 1024):
+    """A full-width SDXL training batch: synthetic_batch at 1024 px with
+    ViT-H's 224 px crops, batch 1, plus the second tower's ids and the time
+    ids of a 1024x1024 image (original size, crop corner, target size)."""
+    import numpy as np
+    from consistentid_torch.training import synthetic_batch
+    from consistentid_torch.training.train_step import batch_to_tensors
+
+    batch = synthetic_batch(1, px, bundle.vision_config.image_size,
+                            bundle.adapter_config.id_embeddings_dim,
+                            seed=seed)
+    batch["clean_ids2"] = np.roll(batch["clean_ids"], 5, axis=1)
+    batch["time_ids"] = np.array([[px, px, 0, 0, px, px]], np.float32)
+    return batch_to_tensors(batch, bundle.device)
+
+
+def sdxl_training_path(bundle, px: int = 1024):
+    """SDXL training at full width: the SDXL bundle (bf16) with fp32
+    trainable masters, TrainConfig(localization_layers=3), IP projections
+    warm-started, sdxl_consistentid_loss at 1024 px, batch 1. Without remat:
+    1 warm-up and 3 timed steps (if that runs out of memory, it says so and
+    the timed steps run with remat "full"); then 2 steps with remat "full"
+    for its peak memory and time; one step under torch.profiler. Raises
+    unless every loss is finite, every trainable leaf had a nonzero first
+    gradient and moved, no frozen leaf moved, and K2 and K3 + K4 launched
+    the per-step counts worked out from the UNet (70 each; K2 again for
+    every self-attention remat recomputes), all on sm90."""
+    import torch
+    from consistentid_torch.core import SchedulerConfig, TrainConfig
+    from consistentid_torch.models import localization_layer_names
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.sampling import NoiseSchedule
+    from consistentid_torch.training import (create_train_state,
+                                             make_train_step,
+                                             sdxl_consistentid_loss,
+                                             warm_start_ip_projections)
+
+    attention = sdxl_train_attention_check(bundle.unet)
+    config = TrainConfig(localization_layers=3)
+    latent_hw = px // bundle.vae_scale_factor
+    per_call, recomputed = flash_self_attentions(
+        bundle.unet, latent_hw,
+        localization_layer_names(config.localization_layers))
+    warm_start_ip_projections(bundle.unet)
+    state = create_train_state(bundle, config)
+    parts = {}
+    for n, p in state.trainable.items():
+        top = n.split(".")[0]
+        parts[top] = parts.get(top, 0) + p.numel()
+    n_train = sum(parts.values())
+    n_frozen = sum(p.numel() for p in state.frozen.values())
+    log(f"SDXL training state: {n_train / 1e6:.1f} M trainable fp32 ("
+        + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in parts.items())
+        + f"), {n_frozen / 1e9:.3f} B frozen bf16; K2 calls per UNet "
+        f"forward {per_call}, of them in blocks remat recomputes "
+        f"{recomputed}")
+    train0 = {n: p.detach().clone() for n, p in state.trainable.items()}
+    frozen0 = {n: p.detach().to("cpu") for n, p in state.frozen.items()}
+    step = make_train_step(bundle, NoiseSchedule.create(SchedulerConfig()),
+                           config, loss_fn=sdxl_consistentid_loss)
+    batch = sdxl_train_batch(bundle, px=px)
+    gen = torch.Generator(bundle.device).manual_seed(0)
+    counters = launch_counters() + bn_counters()
+    losses = []
+
+    def run(mode, n_steps, warm):
+        """n_steps timed steps (after `warm` untimed ones) with `mode`;
+        None if the card ran out of memory."""
+        bundle.remat = mode != "none"
+        bundle.remat_policy = "full" if mode == "none" else mode
+        nonlocal state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(warm):
+                state, m = step(state, batch, generator=gen)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            fa.reset_launches(*counters)
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                state, m = step(state, batch, generator=gen)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"SDXL training with remat {mode!r}: out of memory "
+                f"({str(e).splitlines()[0][:160]})")
+            return None
+        finally:
+            bundle.remat = False
+        launches = [w.launches for w in counters]
+        k2_expected = per_call + (recomputed if mode != "none" else 0)
+        routes = (dict(fa.flash_attention_lse.launches_by_route),
+                  dict(fa.flash_attention_bwd.launches_by_route))
+        if launches != [0, k2_expected * n_steps, per_call * n_steps, 0, 0] \
+                or routes[0]["sm90"] != k2_expected * n_steps \
+                or routes[1]["sm90"] != per_call * n_steps:
+            raise AssertionError(
+                f"SDXL training ({mode}): launches K1, K2, K3 + K4, K5, K6 "
+                f"over {n_steps} steps {launches} (K2 {routes[0]}, K3 + K4 "
+                f"{routes[1]}), expected K2 {k2_expected} and K3 + K4 "
+                f"{per_call} per step, all on sm90, none of K1, K5, K6")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        r = dict(mode=mode, steps=n_steps, warmup_s=warm_s,
+                 s_per_step=seconds / n_steps,
+                 examples_per_s=n_steps / seconds, peak_gib=peak,
+                 k2_per_step=k2_expected, bwd_per_step=per_call,
+                 launches_by_route=dict(k2=routes[0], bwd=routes[1]))
+        log(f"SDXL training ({mode} remat), 1024 px, batch 1: "
+            f"{r['s_per_step']:.4f} s/step, {r['examples_per_s']:.3f} "
+            f"examples/s over {n_steps} steps ({warm} warm-up in "
+            f"{warm_s:.2f} s), peak memory {peak:.2f} GiB, launches per "
+            f"step K2 {k2_expected}, K3 + K4 {per_call} (sm90)")
+        return r
+
+    runs = {"none": run("none", 3, 1)}
+    if runs["none"] is None:
+        runs["full"] = run("full", 3, 1)
+        main_mode = "full"
+    else:
+        runs["full"] = run("full", 2, 0)
+        main_mode = "none"
+    if runs["full"] is None:
+        raise AssertionError("SDXL training ran out of memory with remat "
+                             "'full' too")
+    if not state.step:
+        raise AssertionError("SDXL training took no step")
+    no_grad = [n for n, mu in zip(state.trainable, state.optimizer.mu)
+               if not (bool(mu.ne(0).any()) and bool(mu.isfinite().all()))]
+    if not all(math.isfinite(x) for x in losses) or no_grad:
+        raise AssertionError(f"SDXL training: losses {losses}; leaves "
+                             f"without a finite nonzero gradient "
+                             f"{no_grad[:5]}")
+    still = [n for n, p in state.trainable.items()
+             if torch.equal(p, train0[n])]
+    changed = [n for n, p in state.frozen.items()
+               if not torch.equal(p, frozen0[n].to(p.device))]
+    if still or changed:
+        raise AssertionError(f"SDXL training: trainable leaves that did not "
+                             f"move {still[:5]}; frozen leaves that did "
+                             f"{changed[:5]}")
+    del train0, frozen0
+    bundle.remat = main_mode != "none"
+    bundle.remat_policy = "full"
+    prof = profile_step(step, state, batch, gen,
+                        f"SDXL, {main_mode} remat, bf16, batch 1, 1024 px")
+    bundle.remat = False
+    log(f"SDXL training: {state.step} steps, losses "
+        f"{[round(x, 5) for x in losses]}; every trainable leaf moved, "
+        f"no frozen leaf did")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, main_mode=main_mode,
+                none_out_of_memory=runs["none"] is None, losses=losses,
+                trainable_params=parts, frozen_params=n_frozen,
+                k2_calls_per_unet_forward=per_call,
+                recomputed_per_unet_forward=recomputed, profile=prof,
+                attention_checks=attention)
+
+
+def sd15_remat_phase(bundle, state, px: int = 512):
+    """Remat on the SD1.5 training path at full width (batch 2, 512 px):
+    from one snapshot of the trained state, on one batch and the same
+    draws, with deterministic algorithms (testing.deterministic), a step
+    without remat, one with "full" and one with "dots": the loss within
+    relative 1e-5 and the updated masters within the JAX package's remat
+    test's limits (rtol 2e-4, atol 2e-6) of the step without; each
+    mode's peak memory, its time (a second step) and its K2 launches (15:
+    10 self-attentions and 5 recomputed). The state is put
+    back as it was."""
+    import torch
+    from consistentid_torch.core import SchedulerConfig, TrainConfig
+    from consistentid_torch.models import localization_layer_names
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.sampling import NoiseSchedule
+    from consistentid_torch.training import (make_draws, make_train_step,
+                                             synthetic_batch)
+    from consistentid_torch.testing import deterministic
+    from consistentid_torch.training.train_step import batch_to_tensors
+
+    config = TrainConfig()
+    lat = px // bundle.vae_scale_factor
+    per_call, recomputed = flash_self_attentions(
+        bundle.unet, lat, localization_layer_names(config.localization_layers))
+    snap = state_snapshot(state)
+    step = make_train_step(bundle, NoiseSchedule.create(SchedulerConfig()),
+                           config)
+    batch = batch_to_tensors(synthetic_batch(
+        2, px, bundle.vision_config.image_size,
+        bundle.adapter_config.id_embeddings_dim, seed=7), bundle.device)
+    draws = make_draws(torch.Generator(bundle.device).manual_seed(8),
+                       (2, lat, lat, 4), 1000, bundle.dtype)
+    counters = launch_counters()
+    rows, ref = {}, None
+    for mode in ("none", "full", "dots"):
+        state.load_state_dict(snap)
+        bundle.remat, bundle.remat_policy = mode != "none", \
+            ("full" if mode == "none" else mode)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches(*counters)
+        try:
+            with deterministic():
+                _, m = step(state, batch, draws)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+            loss = float(m["loss"])
+            masters = {n: p.detach().clone() for n, p in
+                       state.trainable.items()}
+            t0 = time.perf_counter()
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            bundle.remat = False
+        k2 = per_call + (recomputed if mode != "none" else 0)
+        if launches != [0, k2, per_call]:
+            raise AssertionError(f"SD1.5 remat {mode}: launches K1, K2, "
+                                 f"K3 + K4 {launches}, expected "
+                                 f"[0, {k2}, {per_call}]")
+        row = dict(loss=loss, s_per_step=seconds, k2_launches=k2,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if ref is None:
+            ref = (loss, masters)
+        else:
+            loss_rel = abs(loss - ref[0]) / abs(ref[0])
+            worst = 0.0
+            for n, w in ref[1].items():
+                excess = ((masters[n] - w).abs()
+                          - (2e-6 + 2e-4 * w.abs())).max().item()
+                worst = max(worst, excess)
+            row.update(loss_rel=loss_rel, masters_over_limit=worst)
+            if not (loss_rel <= 1e-5 and worst <= 0.0):
+                raise AssertionError(
+                    f"SD1.5 remat {mode}: loss {loss} vs {ref[0]} "
+                    f"(relative {loss_rel:.3g}), masters over "
+                    f"atol 2e-6 + rtol 2e-4 by {worst:.3g}")
+        del masters
+        rows[mode] = row
+        log(f"SD1.5 training with remat {mode!r} (batch 2, 512 px): loss "
+            f"{loss:.7g}"
+            + ("" if mode == "none" else
+               f" (relative {row['loss_rel']:.3g}, limit 1e-5; masters "
+               "within rtol 2e-4, atol 2e-6)")
+            + f", {seconds:.4f} s/step, peak {row['peak_gib']:.2f} GiB, K2 "
+            f"launches {k2}, K3 + K4 {per_call}")
+    state.load_state_dict(snap)
+    del snap, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+FACIAL_LABELS = ((1, (60, 452, 90, 422)),     # Face
+                 (14, (452, 520, 170, 342)),   # Neck, to the bottom edge
+                 (4, (170, 205, 150, 230)),    # Left_Eye
+                 (5, (170, 205, 282, 362)),    # Right_Eye
+                 (7, (190, 300, 60, 90)),      # Left_Ear
+                 (10, (230, 300, 226, 286)),   # Nose
+                 (12, (330, 352, 196, 316)),   # Upper_Lip
+                 (13, (352, 376, 196, 316)))   # Lower_Lip
+
+
+def write_corpus(root, n: int = 8):
+    """An FGID corpus of n PNG faces at 512 px (noise over a seeded colour
+    field), each with a grey parsing map of BiSeNet's labels in blobs that
+    move from face to face (the neck reaching the bottom edge, as in a
+    portrait: a background that enclosed the person would fill to the whole
+    image and leave no WithoutBackground mask), a FaceID embedding (.bin,
+    512 fp32) and two captions with facial words; returns the manifest's
+    path."""
+    import numpy as np
+    from consistentid_torch.utils.png import encode_png
+
+    rng = np.random.RandomState(21)
+    items = []
+    for i in range(n):
+        base = rng.randint(40, 200, (1, 1, 3))
+        img = np.clip(base + rng.randint(-40, 40, (512, 512, 3)), 0,
+                      255).astype(np.uint8)
+        labels = np.zeros((512, 512), np.uint8)
+        for value, (y0, y1, x0, x1) in FACIAL_LABELS:
+            dy, dx = rng.randint(-8, 9, 2)
+            labels[y0 + dy:y1 + dy, x0 + dx:x1 + dx] = value
+        Path(root, f"face{i}.png").write_bytes(encode_png(img))
+        Path(root, f"parsing{i}.png").write_bytes(encode_png(labels))
+        rng.randn(512).astype(np.float32).tofile(Path(root, f"id{i}.bin"))
+        items.append({
+            "image_path": f"face{i}.png",
+            "parsing_mask_path": f"parsing{i}.png",
+            "faceid_path": f"id{i}.bin",
+            "vqa_llva": f"a portrait photo of person {i} outdoors.",
+            "vqa_llva_more_face_detail":
+                "The person has bright eyes, a straight nose, small ears "
+                "and full lips."})
+    path = Path(root, "JSON_all.json")
+    path.write_text(json.dumps(items))
+    return str(path)
+
+
+def train_cli_phase(paths, outdir, k2_per_step: int = 10):
+    """The data-to-train loop through the CLIs at full width, on the
+    written SD1.5 set: a corpus of 8 PNG faces at 512 px; `apps.precompute`
+    encodes it on the card; `apps.train --encoded` takes 4 steps with
+    --steps-per-call 2 (batch 2) and checkpoints at steps 2 and 4; a second
+    `apps.train` in another directory, given the step-2 checkpoint, resumes
+    to step 4, and its restored masters and AdamW moments must be the first
+    run's at step 2, bit for bit; a pixel-path `apps.train` (FGIDDataset on
+    the corpus) takes 2 steps. Every run 10 K2 and 10 K3 + K4 launches per
+    step on sm90."""
+    import torch
+    from consistentid_torch.apps import precompute as precompute_cli
+    from consistentid_torch.apps import train as train_cli
+    from consistentid_torch.io import checkpoint as ckpt_mod
+    from consistentid_torch.ops import flash_attention as fa
+
+    root = Path(outdir, "corpus")
+    root.mkdir()
+    manifest = write_corpus(root)
+    common = ["--base", paths["base"],
+              "--image-encoder", paths["image_encoder_path"],
+              "--tokenizer", str(Path(paths["base"], "tokenizer"))]
+    enc = str(Path(outdir, "encoded"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if precompute_cli.main(common + ["--manifest", manifest, "--data-root",
+                                     str(root), "--out", enc,
+                                     "--batch-size", "4"]) != 0:
+        raise AssertionError("apps.precompute failed")
+    precompute_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    saved, restored = {}, {}
+    real_save, real_restore = (ckpt_mod.CheckpointManager.save,
+                               ckpt_mod.CheckpointManager.restore)
+
+    def save(self, state):
+        saved[state.step] = state_snapshot(state)
+        return real_save(self, state)
+
+    def restore(self, state, step=None):
+        out = real_restore(self, state, step)
+        restored.update(state_snapshot(out))
+        return out
+
+    counters = launch_counters()
+
+    def train(argv):
+        fa.reset_launches(*counters)
+        t0 = time.perf_counter()
+        run = train_cli.main(common + ["--epochs", "10"] + argv)
+        seconds = time.perf_counter() - t0
+        steps = sum(run["steps_per_call"])
+        launches = [c.launches for c in counters]
+        n = k2_per_step * steps
+        if launches != [0, n, n] or \
+                fa.flash_attention_bwd.launches_by_route["sm90"] != n:
+            raise AssertionError(f"apps.train {argv}: launches K1, K2, "
+                                 f"K3 + K4 {launches} over {steps} steps")
+        # a masked MSE of random predictions is 0 only under an empty mask
+        if not all(math.isfinite(x) and x != 0.0 for x in run["losses"]):
+            raise AssertionError(f"apps.train: losses {run['losses']}")
+        # the last call of the step function, after the first one's
+        # allocations
+        s_per_step = run["step_times"][-1] / run["steps_per_call"][-1]
+        out = dict(seconds=seconds, steps=steps, s_per_step=s_per_step,
+                   step_times=run["step_times"], losses=run["losses"],
+                   final_step=run["state"].step,
+                   restored_step=run["restored_step"])
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    run_a, run_b = Path(outdir, "run_a"), Path(outdir, "run_b")
+    ckpt_mod.CheckpointManager.save = save
+    ckpt_mod.CheckpointManager.restore = restore
+    try:
+        encoded = train(["--encoded", "--manifest",
+                         str(Path(enc, "encoded_manifest.json")),
+                         "--output-dir", str(run_a), "--max-steps", "4",
+                         "--save-steps", "2", "--steps-per-call", "2"])
+        steps_a = sorted(int(p.name) for p in run_a.iterdir()
+                         if p.name.isdigit())
+        if encoded["final_step"] != 4 or steps_a != [2, 4] or 2 not in saved:
+            raise AssertionError(f"apps.train --encoded: final step "
+                                 f"{encoded['final_step']}, checkpoints "
+                                 f"{steps_a}")
+        run_b.mkdir()
+        shutil.copytree(run_a / "2", run_b / "2")
+        resumed = train(["--encoded", "--manifest",
+                         str(Path(enc, "encoded_manifest.json")),
+                         "--output-dir", str(run_b), "--max-steps", "4",
+                         "--save-steps", "2"])
+    finally:
+        ckpt_mod.CheckpointManager.save = real_save
+        ckpt_mod.CheckpointManager.restore = real_restore
+    want = saved[2]
+    bad = [n for key in ("trainable", "mu", "nu")
+           for n, t in want[key].items()
+           if not torch.equal(restored[key][n], t)]
+    if resumed["restored_step"] != 2 or resumed["final_step"] != 4 or bad \
+            or restored["count"] != want["count"]:
+        raise AssertionError(f"resume: restored step "
+                             f"{resumed['restored_step']}, final "
+                             f"{resumed['final_step']}, tensors that differ "
+                             f"from the first run's step 2: {bad[:5]}")
+    n_tensors = sum(len(want[k]) for k in ("trainable", "mu", "nu"))
+    del saved, restored, want
+    shutil.rmtree(run_a)
+    shutil.rmtree(run_b)
+    pixel = train(["--manifest", manifest, "--data-root", str(root),
+                   "--output-dir", str(Path(outdir, "run_pixel")),
+                   "--max-steps", "2"])
+    shutil.rmtree(Path(outdir, "run_pixel"))
+    log(f"CLI loop (SD1.5 set, 8 faces at 512 px, batch 2, bf16): "
+        f"precompute {precompute_s:.2f} s; train --encoded 4 steps in "
+        f"{encoded['seconds']:.2f} s with the load "
+        f"({encoded['s_per_step']:.4f} s/step in its last call of 2 steps); resumed from step 2 to 4 in "
+        f"{resumed['seconds']:.2f} s ({resumed['s_per_step']:.4f} s in its "
+        f"second step), its restored masters and AdamW moments "
+        f"({n_tensors} tensors) the first run's at step 2 bit for bit; pixel "
+        f"path 2 steps in {pixel['seconds']:.2f} s ({pixel['s_per_step']:.4f}"
+        f" s in its second step); losses encoded "
+        f"{[round(x, 5) for x in encoded['losses']]}, resumed "
+        f"{[round(x, 5) for x in resumed['losses']]}, pixel "
+        f"{[round(x, 5) for x in pixel['losses']]}")
+    # one step a call after one warm step on both paths: the resumed run's
+    # second step and the pixel run's
+    return dict(precompute_s=precompute_s, encoded=encoded, resumed=resumed,
+                pixel=pixel, resume_bit_equal_tensors=n_tensors,
+                encoded_vs_pixel_s_per_step=(resumed["s_per_step"],
+                                             pixel["s_per_step"]))
+
+
 def main() -> int:
     try:
         import torch
@@ -2427,8 +3037,10 @@ def main() -> int:
         del infer_pipe
         gc.collect()  # the server's handler objects hold it in cycles
         torch.cuda.empty_cache()
+        cli = train_cli_phase(paths, tmp)
         sdxl_bundle, sdxl = sdxl_path()
         sdxl_infer = sdxl_infer_phase(sdxl_bundle, paths, tmp)
+        sdxl_train = sdxl_training_path(sdxl_bundle)
         del sdxl_bundle
         gc.collect()
         torch.cuda.empty_cache()
@@ -2437,6 +3049,7 @@ def main() -> int:
     state, train = training_path(bundle)
     train_profile = profile_train_step(bundle, state)
     train_path = train_unet_path_check(bundle, state)
+    remat = sd15_remat_phase(bundle, state)
     del bundle, state
     torch.cuda.empty_cache()
     tiny = tiny_reference_check()
@@ -2451,6 +3064,29 @@ def main() -> int:
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"], "library": library,
                 "shapes": rows}
+
+    def train_launches(kernel):
+        """K2's ("k2") or K3 + K4's ("bwd") launches per step on the other
+        training paths: SDXL (none and full remat), SD1.5 under remat, the
+        CLI runs."""
+        per = {f"sdxl_{mode}": (None if r is None else
+                                r[f"{kernel}_per_step"])
+               for mode, r in sdxl_train["runs"].items()}
+        per.update({f"sd15_{mode}": (r["k2_launches"] if kernel == "k2"
+                                     else 10) for mode, r in remat.items()})
+        by_route = {mode: r["launches_by_route"][kernel]
+                    for mode, r in sdxl_train["runs"].items()
+                    if r is not None}
+        return {"launches_per_train_step": per,
+                "sdxl_train_launches_by_route": by_route,
+                "cli_launches": {k: 10 * cli[k]["steps"]
+                                 for k in ("encoded", "resumed", "pixel")},
+                "train_launches_note":
+                    "launches: over the 5 timed SD1.5 steps (batch 2, "
+                    "512 px); launches_per_train_step: per step of SDXL "
+                    "training (1024 px, batch 1) without remat and with "
+                    "remat full, and of SD1.5 with remat none, full, dots; "
+                    "cli_launches: over each apps.train run"}
 
     fwd_src = "consistentid_torch/csrc/flash_attention_sm90.cu"
     bwd_src = "consistentid_torch/csrc/flash_attention_bwd_sm90.cu"
@@ -2486,7 +3122,8 @@ def main() -> int:
         {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
-         "launches_by_route": train["k2_launches_by_route"]},
+         "launches_by_route": train["k2_launches_by_route"],
+         **train_launches("k2")},
         {**entry("flash_attention_bwd (K3 + K4, fused)", bwd_src,
                  f"{jax_src}:273", k34, train_rows["K3+K4"],
                  "sdpa backward alone (dq, dk, dv)"),
@@ -2501,6 +3138,7 @@ def main() -> int:
              "dq_run_to_run_rel_l2"],
          "dq_order": dq_order,
          "launches_by_route": train["bwd_launches_by_route"],
+         **train_launches("bwd"),
          "kernel_resources": [
              k for k in resources["flash_attention_bwd_sm90"]["kernels"]
              if "flash_bwd_sm90_kernel" in k["kernel"]],
@@ -2534,6 +3172,8 @@ def main() -> int:
                     "training_path": train, "train_profile": train_profile,
                     "training_unet_path_check": train_path,
                     "tiny_train_card_vs_cpu": tiny_train,
+                    "train_cli": cli, "sdxl_training": sdxl_train,
+                    "sd15_remat": remat,
                     "kernel_resources": resources,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """Configuration dataclasses of the port.
 
 Copies of the JAX package's core/config.py entries that the SD1.5 and SDXL
-text-to-image and the SD1.5 training paths read, with the same field names
-and defaults, so a config carries across field by field. Fields the port
+text-to-image and training paths read, with the same field names and
+defaults, so a config carries across field by field. Fields the port
 does not read yet (DeepCache, prediction types and timestep spacings other
 than epsilon/leading, the adapter's duplicated LoRA and scale defaults) are
 left out.
@@ -175,6 +175,9 @@ class PipelineConfig:
     scheduler: str = "ddim"
 
 
+REMAT_POLICIES = ("full", "dots")
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """SD1.5 adapter training (the JAX package's TrainConfig, same fields and
@@ -194,8 +197,9 @@ class TrainConfig:
     max_steps: int = 100000
     save_steps: int = 1000
     seed: int = 42
-    # UNet rematerialisation is not ported yet (torch.utils.checkpoint is
-    # its counterpart); setting either field raises
+    # UNet rematerialisation under autograd (models/unet.py): "full"
+    # recomputes each block in the backward, "dots" keeps the outputs of its
+    # 2-D products (the linear layers) and recomputes the rest
     remat_unet: bool = False
     remat_policy: str = "full"  # "full" | "dots"
     # AdamW first-moment storage dtype ("float32" | "bfloat16"); second
@@ -203,9 +207,9 @@ class TrainConfig:
     mu_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.remat_unet or self.remat_policy != "full":
-            raise NotImplementedError(
-                "UNet remat is not ported to the PyTorch package yet")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
         if self.mu_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"mu_dtype {self.mu_dtype!r}: float32 or "
                              "bfloat16")

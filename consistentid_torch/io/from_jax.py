@@ -21,7 +21,7 @@ module's weights as such a tree, for io/export_backbones.py to write.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,11 +119,13 @@ def _leaf_from_param(module: nn.Module, leaf: str, t: torch.Tensor):
 
 
 def tree_from_module(module: nn.Module,
-                     flatten_nhwc: Optional[Mapping[str, int]] = None
+                     flatten_nhwc: Optional[Mapping[str, int]] = None,
+                     keep: Optional[Callable[[str], bool]] = None
                      ) -> Tuple[Dict, Dict]:
     """A port module's weights as flax-shaped (params, batch_stats) trees of
     fp32 numpy arrays: the inverse of `state_from_jax`, including its
-    `flatten_nhwc` permutation (given the same names)."""
+    `flatten_nhwc` permutation (given the same names). `keep`: only the
+    parameters whose dotted state-dict name it accepts."""
     params: Dict = {}
     stats: Dict = {}
 
@@ -134,6 +136,9 @@ def tree_from_module(module: nn.Module,
 
     for name, mod in module.named_modules():
         for leaf, t in mod.named_parameters(recurse=False):
+            if keep is not None and not keep(f"{name}.{leaf}" if name
+                                             else leaf):
+                continue
             key, a = _leaf_from_param(mod, leaf, t)
             if key == "kernel" and name in (flatten_nhwc or {}):
                 c = flatten_nhwc[name]

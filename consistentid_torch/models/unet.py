@@ -14,16 +14,28 @@ from the deepest up block, so `up_2` is level 1), and every attn2 in them
 returns its softmax, column-gathered at `capture_cols`. The forward then
 returns `(out, {module path: probs})`, keyed as the JAX package's sown
 tensors are; training.losses.collect_attn_probs orders them as it does.
+
+Rematerialisation (`remat`, the JAX package's `nn.remat` of the blocks,
+:134-168): under autograd each ResnetBlock and each Transformer2D whose
+attention probabilities are not captured runs inside a non-reentrant
+`torch.utils.checkpoint`, so its activations are recomputed in the backward
+instead of kept. `remat_policy="full"` keeps nothing of the block;
+`"dots"` (JAX's `dots_with_no_batch_dims_saveable`) keeps the outputs of
+its 2-D products, the linear layers' `mm` / `addmm`, and recomputes the
+rest: the batched attention products and the convolutions too.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..core.config import UNetConfig
+from ..core.config import REMAT_POLICIES, UNetConfig
 from .layers import (GN_EPS, Downsample, ResnetBlock, TimestepEmbedding,
                      Transformer2D, Upsample, timestep_embedding)
 
@@ -38,9 +50,24 @@ def localization_layer_names(num_layers: int) -> Tuple[str, ...]:
     return UNET_LAYER_NAMES[start:start + num_layers]
 
 
+# the 2-D products "dots" keeps (JAX: dot_general with no batch dimension)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_with(block: nn.Module, params: Dict[str, torch.Tensor], *args):
+    return torch.func.functional_call(block, params, args)
+
+
 class UNet(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
+        self.remat = False
+        self.remat_policy = "full"
         cfg = self.config = config
         boc = cfg.block_out_channels
         n = len(boc)
@@ -97,6 +124,24 @@ class UNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(groups, boc[0], eps=GN_EPS)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
 
+    def _block(self, block: nn.Module, *args):
+        """block(*args), rematerialised when `remat` is on and autograd
+        records. The recomputation in the backward runs on the tensors the
+        block's parameters were in this forward (under the bundle's
+        `call`, the masters cast to the compute dtype, which `call` no
+        longer holds by then), so they are passed in explicitly."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(*args)
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _save_products)
+        return checkpoint(_run_with, block, dict(block.named_parameters()),
+                          *args, use_reentrant=False, **kw)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, lora_scale: float = 1.0,
                 ip_scale: float = 1.0, capture_layers: Sequence[str] = (),
@@ -132,7 +177,8 @@ class UNet(nn.Module):
 
         def attn(name, block, h):
             if block not in capture_layers:
-                return getattr(self, name)(h, ctx, lora_scale, ip_scale)
+                return self._block(getattr(self, name), h, ctx, lora_scale,
+                                   ip_scale)
             h, probs = getattr(self, name)(h, ctx, lora_scale, ip_scale,
                                            True, capture_cols)
             for sub, p in probs.items():
@@ -144,7 +190,8 @@ class UNet(nn.Module):
         skips = [h]
         for level in range(n):
             for j in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{level}_resnet_{j}")(h, temb)
+                h = self._block(getattr(self, f"down_{level}_resnet_{j}"),
+                                h, temb)
                 if cfg.down_block_has_attn[level]:
                     h = attn(f"down_{level}_attn_{j}", f"down_{level}", h)
                 skips.append(h)
@@ -152,15 +199,16 @@ class UNet(nn.Module):
                 h = getattr(self, f"down_{level}_downsample")(h)
                 skips.append(h)
 
-        h = self.mid_resnet_0(h, temb)
+        h = self._block(self.mid_resnet_0, h, temb)
         h = attn("mid_attn", "mid", h)
-        h = self.mid_resnet_1(h, temb)
+        h = self._block(self.mid_resnet_1, h, temb)
 
         for i in range(n):
             level = n - 1 - i
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
-                h = getattr(self, f"up_{i}_resnet_{j}")(h, temb)
+                h = self._block(getattr(self, f"up_{i}_resnet_{j}"), h,
+                                temb)
                 if cfg.down_block_has_attn[level]:
                     h = attn(f"up_{i}_attn_{j}", f"up_{i}", h)
             if i < n - 1:

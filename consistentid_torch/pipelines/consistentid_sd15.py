@@ -98,6 +98,24 @@ class SD15Bundle(nn.Module):
         self.requires_grad_(False)
         self.init_params(torch.Generator(device).manual_seed(seed))
 
+    # rematerialise the training UNet's blocks (models/unet.py), as the JAX
+    # bundle's fields do; off until set
+    @property
+    def remat(self) -> bool:
+        return self.unet.remat
+
+    @remat.setter
+    def remat(self, value: bool) -> None:
+        self.unet.remat = bool(value)
+
+    @property
+    def remat_policy(self) -> str:
+        return self.unet.remat_policy
+
+    @remat_policy.setter
+    def remat_policy(self, value: str) -> None:
+        self.unet.remat_policy = value
+
     def _make_modules(self) -> None:
         """Build the submodules (on the meta device, from the configs)."""
         a = self.adapter_config

@@ -135,15 +135,19 @@ def load_face_stack(bisenet_path: Optional[str] = None,
     return face_parser, face_embedder
 
 
-def _load_models(bundle: SD15Bundle, base_dir: str,
-                 consistentid_path: Optional[str],
-                 image_encoder_path: Optional[str]) -> None:
-    """The dump's UNet (IP projections warm-started from the base ones),
-    VAE and text encoders, the image encoder and the adapter checkpoint
-    into the bundle."""
-    _load_tree(bundle.unet, unet_from_diffusers(
-        read_checkpoint(os.path.join(base_dir, "unet")), bundle.unet_config))
-    warm_start_ip_projections(bundle.unet)
+def load_models(bundle: SD15Bundle, base_dir: str,
+                consistentid_path: Optional[str] = None,
+                image_encoder_path: Optional[str] = None,
+                with_unet: bool = True) -> None:
+    """The dump's UNet (IP projections warm-started from the base ones;
+    skipped without `with_unet`), VAE and text encoders, the image encoder
+    and the adapter checkpoint, where given, into the bundle. Leaves no file
+    provides keep the bundle's initialisation."""
+    if with_unet:
+        _load_tree(bundle.unet, unet_from_diffusers(
+            read_checkpoint(os.path.join(base_dir, "unet")),
+            bundle.unet_config))
+        warm_start_ip_projections(bundle.unet)
     _load_tree(bundle.vae, vae_from_diffusers(
         read_checkpoint(os.path.join(base_dir, "vae")), bundle.vae_config))
     towers = [("text_encoder", bundle.text_config)]
@@ -204,7 +208,7 @@ def load_sd15_consistentid(
             adapter_config=AdapterConfig(num_id_tokens=num_tokens),
             dtype=resolve_dtype(dtype), device=resolve_device(device))
     device = bundle.device
-    _load_models(bundle, base_dir, consistentid_path, image_encoder_path)
+    load_models(bundle, base_dir, consistentid_path, image_encoder_path)
 
     face_parser, face_embedder = load_face_stack(
         bisenet_path, arcface_path, scrfd_path, det_size=640, device=device)
@@ -262,7 +266,7 @@ def load_sdxl_consistentid(
             adapter_config=sdxl_adapter_config(num_id_tokens=num_tokens),
             vae_config=VAEConfig(scaling_factor=0.13025, force_upcast=True),
             dtype=resolve_dtype(dtype), device=resolve_device(device))
-    _load_models(bundle, base_dir, consistentid_path, image_encoder_path)
+    load_models(bundle, base_dir, consistentid_path, image_encoder_path)
     face_parser, face_embedder = load_face_stack(
         bisenet_path, arcface_path, scrfd_path, det_size=512,
         device=bundle.device)

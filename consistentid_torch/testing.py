@@ -82,6 +82,25 @@ def tf32_off():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+@contextmanager
+def deterministic():
+    """Deterministic CUDA algorithms inside the block (torch's flag, warn
+    only, and cuDNN's), for card checks that compare two runs bit for bit
+    or nearly: on the card `torch.gather`'s backward, which the attention
+    capture takes, otherwise adds with atomics in any order, and AdamW turns
+    that noise in a near-zero gradient into a step of either sign."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+
+
 def drop_last_tile(n: int, tile: int = 64) -> int:
     """How many of n rows a kernel keeps that skips its last `tile`-row
     tile, or the ragged tail past the last whole tile: the control the card

@@ -1,4 +1,5 @@
-"""ConsistentID SD1.5 adapter training step on one device.
+"""ConsistentID adapter training step on one device (SD1.5; SDXL through
+`make_train_step(loss_fn=sdxl_consistentid_loss)`, training/sdxl_loss.py).
 
 Counterpart of the JAX package's training/train_step.py without shard_map
 (reference train.py:93-292): VAE encode, CLIP encodes and ViT-H under
@@ -12,6 +13,10 @@ stay in the bundle's dtype. Every forward runs in the bundle's dtype
 (`SD15Bundle.call` casts the masters at use), so gradients and AdamW
 moments are fp32, as in the JAX package where flax casts each fp32 weight
 at use. The optimizer updates the masters in place.
+
+`make_multi_train_step` takes several optimizer steps per call over
+stacked batches. `TrainState.state_dict` / `load_state_dict` carry what
+resumes a run (io/checkpoint.py).
 
 Random draws are explicit (`Draws`): the latent noise, the timesteps, the
 VAE posterior noise and the mask coin. `jax.random` and `torch.Generator`
@@ -72,6 +77,13 @@ def warm_start_ip_projections(module: nn.Module) -> None:
             p.copy_(params[src])
 
 
+def merge_params(trainable: Mapping[str, torch.Tensor],
+                 frozen: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """One state dict of both partitions (a trainable name wins)."""
+    return {**frozen, **trainable}
+
+
 @dataclass
 class TrainState:
     """The trainable fp32 masters and the frozen parameters of a bundle (by
@@ -81,6 +93,44 @@ class TrainState:
     frozen: Dict[str, nn.Parameter]
     optimizer: AdamW
     step: int = 0
+
+    def state_dict(self, frozen: bool = False) -> Dict:
+        """What resumes training: the masters, AdamW's moments (by the
+        masters' names) and count, and the step; with `frozen`, the frozen
+        parameters too. The tensors are the live ones, not copies."""
+        names = list(self.trainable)
+        opt = self.optimizer
+        out = {"trainable": {n: p.detach() for n, p in
+                             self.trainable.items()},
+               "mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)),
+               "count": opt.count, "step": self.step}
+        if frozen:
+            out["frozen"] = {n: p.detach() for n, p in self.frozen.items()}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping) -> None:
+        """Copy a `state_dict` into this state in place (the bundle's own
+        tensors keep their storage); every name must match."""
+        names = list(self.trainable)
+        for key in ("trainable", "mu", "nu"):
+            if list(state[key]) != names:
+                raise KeyError(f"{key}: the saved names differ from this "
+                               "state's")
+        for n, p in self.trainable.items():
+            p.copy_(state["trainable"][n])
+        opt = self.optimizer
+        for i, n in enumerate(names):
+            opt.mu[i] = state["mu"][n].to(opt.mu[i].device, opt.mu[i].dtype)
+            opt.nu[i] = state["nu"][n].to(opt.nu[i].device, opt.nu[i].dtype)
+        opt.count = int(state["count"])
+        self.step = int(state["step"])
+        if "frozen" in state:
+            if set(state["frozen"]) != set(self.frozen):
+                raise KeyError("frozen: the saved names differ from this "
+                               "state's")
+            for n, p in self.frozen.items():
+                p.copy_(state["frozen"][n])
 
 
 def create_train_state(bundle: nn.Module, config: TrainConfig) -> TrainState:
@@ -193,9 +243,12 @@ def consistentid_loss_encoded(bundle, batch: Mapping[str, torch.Tensor],
 
 def _adapter_losses(bundle, batch, latents, image_embeds, region_embeds,
                     prompt_embeds, draws: Draws, *, schedule: NoiseSchedule,
-                    config: TrainConfig):
-    """Shared tail of the SD1.5 objective (reference train.py:41-91):
-    q-sample, adapters, UNet with column-gathered attention capture, the
+                    config: TrainConfig,
+                    added_cond: Optional[Dict[str, torch.Tensor]] = None):
+    """Shared tail of the SD1.5 and SDXL objectives (reference
+    train.py:41-91, train_SDXL.py:36-132): q-sample, adapters (the ID
+    projection with the adapter config's shortcut, off for SD1.5), UNet
+    with column-gathered attention capture (and SDXL's `added_cond`), the
     3-term loss. background_loss is computed and logged, never added to the
     loss (as in the reference)."""
     dtype = bundle.dtype
@@ -204,9 +257,11 @@ def _adapter_losses(bundle, batch, latents, image_embeds, region_embeds,
     timesteps = draws.timesteps
     noisy = schedule.add_noise(latents, noise, timesteps)
 
+    a = bundle.adapter_config
     faceid_tokens = bundle.call(bundle.proj,
                                 batch["faceid_embeds"].to(dtype),
-                                image_embeds.detach())
+                                image_embeds.detach(), shortcut=a.shortcut,
+                                scale=a.shortcut_scale)
     fused = bundle.call(bundle.facial_encoder, prompt_embeds.detach(),
                         region_embeds.detach(), batch["facial_idx"],
                         batch["facial_idx_mask"])
@@ -215,7 +270,7 @@ def _adapter_losses(bundle, batch, latents, image_embeds, region_embeds,
     eps_pred, captured = bundle.call(
         bundle.unet, noisy, timesteps, context,
         capture_layers=localization_layer_names(config.localization_layers),
-        capture_cols=batch["facial_idx"])
+        capture_cols=batch["facial_idx"], added_cond=added_cond)
 
     # random foreground masking (p = mask_loss_prob): when it fires, the
     # predict loss itself is computed on masked pred / target
@@ -291,3 +346,38 @@ def make_train_step(bundle, schedule: NoiseSchedule, config: TrainConfig,
         return state, metrics
 
     return step
+
+
+def make_multi_train_step(bundle, schedule: NoiseSchedule,
+                          config: TrainConfig, n_steps: int,
+                          loss_fn: Optional[LossFn] = None):
+    """N optimizer steps per call: multi(state, batches, draws=None,
+    generator=None) -> (state, metrics stacked (n_steps,)).
+
+    Every batch leaf has a leading n_steps dimension, (n_steps, B, ...) or
+    (n_steps, accum, B, ...) under gradient accumulation. `draws` is a list
+    of n_steps entries, each what `make_train_step`'s step takes (a Draws,
+    or a list of accum Draws); without it they are drawn from `generator`
+    in step order. So the N steps equal N calls of `make_train_step` on
+    the same draws (the JAX package's lax.scan that folds one rng per
+    step)."""
+    step = make_train_step(bundle, schedule, config, loss_fn)
+
+    def multi(state: TrainState, batches: Mapping, draws=None,
+              generator: Optional[torch.Generator] = None):
+        batches = batch_to_tensors(batches, bundle.device)
+        for key, val in batches.items():
+            if val.shape[0] != n_steps:
+                raise ValueError(f"{key}: leading dim {val.shape[0]}, "
+                                 f"expected n_steps = {n_steps}")
+        if draws is not None and len(draws) != n_steps:
+            raise ValueError(f"{len(draws)} draws for {n_steps} steps")
+        metrics = []
+        for i in range(n_steps):
+            state, m = step(state, {k: v[i] for k, v in batches.items()},
+                            None if draws is None else draws[i], generator)
+            metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics])
+                       for k in metrics[0]}
+
+    return multi

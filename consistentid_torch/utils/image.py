@@ -6,8 +6,12 @@ torch's antialiased bicubic or bilinear, which use PIL's filters (cubic
 coefficient a = -0.5) and support scaling; like PIL they resize one axis at
 a time and round to uint8 after each, so the two agree to one grey level
 but for rare values (two: one per pass; PIL's filters are fixed-point).
+Torch has no Lanczos mode: `resize_lanczos_uint8` is PIL's LANCZOS in
+numpy, its fixed-point arithmetic included.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -54,6 +58,73 @@ def resize_bilinear_uint8(image: np.ndarray, height: int,
     if image.shape[:2] == (height, width):
         return np.array(image)
     return resize_uint8(image, height, width, "bilinear")
+
+
+# PIL's 8-bit resampling: coefficients in fixed point with 22 fraction bits
+_PRECISION_BITS = 22
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """PIL's LANCZOS filter: sinc(x) sinc(x / 3) on [-3, 3)."""
+    return np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3.0),
+                    0.0)
+
+
+def _lanczos_pass(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One PIL resampling pass of a uint8 array along `axis` (PIL's
+    precompute_coeffs and normalize_coeffs_8bpc): per output pixel the
+    filter widened by the scale when downsampling, its weights normalised
+    to sum 1, rounded to fixed point, the sum rounded half up and clipped
+    to uint8."""
+    in_size = x.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), np.int64)
+    fixed = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        w = _lanczos((np.arange(n) + xmin - center + 0.5)
+                     * (1.0 / filterscale))
+        total = w.sum()
+        if total != 0.0:
+            w = w / total
+        w = w * (1 << _PRECISION_BITS)
+        fixed[xx, :n] = np.where(w < 0, np.trunc(w - 0.5), np.trunc(w + 0.5))
+        idx[xx, :n] = np.arange(xmin, xmin + n)
+    src = np.moveaxis(x, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    extra = (slice(None),) + (None,) * (src.ndim - 1)
+    for k in range(ksize):
+        acc += fixed[:, k][extra] * src[idx[:, k]]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_lanczos_uint8(image: np.ndarray, height: int,
+                         width: int) -> np.ndarray:
+    """PIL LANCZOS resize of an (H, W[, C]) uint8 image: a horizontal pass
+    then a vertical one, each only where that axis changes size and each
+    rounded to uint8, as PIL's resample does."""
+    out = np.asarray(image, np.uint8)
+    if out.shape[1] != width:
+        out = _lanczos_pass(out, width, axis=1)
+    if out.shape[0] != height:
+        out = _lanczos_pass(out, height, axis=0)
+    return np.array(out)
+
+
+def sd_image_preprocess(image, height: int, width: int) -> np.ndarray:
+    """Diffusion image input: (H, W, 3) uint8 resized with PIL's LANCZOS
+    (`resize_lanczos_uint8`) and scaled to [-1, 1], (1, height, width, 3)
+    fp32."""
+    arr = resize_lanczos_uint8(_as_rgb_uint8(image), height, width)
+    arr = arr.astype(np.float32) / 255.0
+    return (arr * 2.0 - 1.0)[None]
 
 
 def clip_preprocess(image, size: int = 224) -> np.ndarray:

@@ -146,6 +146,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda_generator):
 BWD_CASES = [
     # shape (B, H, Sq, D), Sk, dtype
     ((2, 8, 1024, 80), 1024, torch.bfloat16),
+    # SDXL training at 1024 px, batch 1: T1 (level 1) and T2 (level 2 and
+    # the mid block)
+    ((1, 10, 4096, 64), 4096, torch.bfloat16),
+    ((1, 20, 1024, 64), 1024, torch.bfloat16),
     ((1, 4, 4096, 40), 4096, torch.bfloat16),
     ((2, 3, 1000, 40), 1037, torch.bfloat16),
     ((1, 2, 130, 100), 170, torch.bfloat16),
@@ -384,6 +388,90 @@ def test_tiny_sdxl_generate_card_vs_cpu(cuda_generator):
     assert gpu_moved == {r: 12 * (r == "f32") for r in gpu_moved}
     assert gpu_img.dtype == torch.float32
     torch.testing.assert_close(gpu_img, cpu_img, rtol=0, atol=1e-3)
+
+
+def _tiny_sdxl_train_step(bundle, remat=None):
+    """One SDXL train step of a tiny bundle (128 px, batch 2: level 1's
+    self-attention, 1024 tokens, through the flash Function) on fixed
+    draws: (loss, updated masters and the step's gradients, read back from
+    AdamW's first moment, mu = (1 - b1) g from zero, on the CPU, K2 and
+    K3 + K4 launches)."""
+    from consistentid_torch.core import SchedulerConfig, TrainConfig
+    from consistentid_torch.sampling import NoiseSchedule
+    from consistentid_torch.training import (create_train_state, make_draws,
+                                             make_train_step,
+                                             sdxl_consistentid_loss,
+                                             synthetic_batch)
+
+    batch = synthetic_batch(2, 128, 28, 16, seed=4)
+    batch["clean_ids2"] = batch["clean_ids"][:, ::-1].copy()
+    batch["time_ids"] = torch.tensor([[128.0, 128, 0, 0, 128, 128]] * 2)
+    draws = make_draws(torch.Generator().manual_seed(3), (2, 64, 64, 4),
+                       1000)
+    draws.__dict__.update({k: v.to(bundle.device)
+                           for k, v in vars(draws).items()})
+    if remat:
+        bundle.remat, bundle.remat_policy = True, remat
+    config = TrainConfig(localization_layers=3)
+    state = create_train_state(bundle, config)
+    wrappers = (port_flash.flash_attention_lse, port_flash.flash_attention_bwd)
+    before = [w.launches for w in wrappers]
+    step = make_train_step(bundle, NoiseSchedule.create(SchedulerConfig()),
+                           config, loss_fn=sdxl_consistentid_loss)
+    state, metrics = step(state, batch, draws)
+    if bundle.device.type == "cuda":
+        torch.cuda.synchronize()
+    grads = {n: mu.cpu() / (1 - config.adam_b1)
+             for n, mu in zip(state.trainable, state.optimizer.mu)}
+    return (float(metrics["loss"]),
+            {n: p.detach().cpu() for n, p in state.trainable.items()},
+            grads, [w.launches - b for w, b in zip(wrappers, before)])
+
+
+@pytest.mark.cuda
+def test_tiny_sdxl_train_step_card_vs_cpu(cuda_generator):
+    """The tiny fp32 SDXL bundle's train step on the card (K2 and K3 + K4 on
+    their fp32 route, 3 launches each), TF32 off, against the CPU, with the
+    CPU parity tests' limits: the loss relative 1e-5, each gradient leaf
+    within 1e-4 of its largest element, each master within 2.5 lr (Adam's
+    first step moves an element by lr times the sign of its gradient, so
+    where fp32 noise flips a near-zero gradient the two differ by 2 lr)."""
+    from consistentid_torch.testing import tiny_sdxl_bundle
+
+    cpu = tiny_sdxl_bundle(device="cpu", seed=3)
+    gpu = tiny_sdxl_bundle(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    with tf32_off():
+        cpu_loss, cpu_p, cpu_g, cpu_n = _tiny_sdxl_train_step(cpu)
+        gpu_loss, gpu_p, gpu_g, gpu_n = _tiny_sdxl_train_step(gpu)
+    assert cpu_n == [0, 0] and gpu_n == [3, 3]
+    assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for name, w in cpu_g.items():
+        scale = max(w.abs().max().item(), 1e-12)
+        assert (gpu_g[name] - w).abs().max().item() <= 1e-4 * scale, name
+        assert (gpu_p[name] - cpu_p[name]).abs().max().item() <= 2.5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_tiny_sdxl_remat_step_on_card(cuda_generator, policy):
+    """The same step on the card with UNet remat against the step without
+    it, both with deterministic algorithms (testing.deterministic: the
+    capture's gather backward otherwise adds in any order): K2 runs again
+    for the one non-captured level-1 block (3 -> 4 launches), K3 + K4 3;
+    the loss relative 1e-5 and the masters within the JAX package's remat
+    limits (rtol 2e-4, atol 2e-6)."""
+    from consistentid_torch.testing import deterministic, tiny_sdxl_bundle
+
+    with tf32_off(), deterministic():
+        ref_loss, ref_p, _, ref_n = _tiny_sdxl_train_step(
+            tiny_sdxl_bundle(device="cuda", seed=3))
+        loss, got_p, _, n = _tiny_sdxl_train_step(
+            tiny_sdxl_bundle(device="cuda", seed=3), remat=policy)
+    assert ref_n == [3, 3] and n == [4, 3]
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, w in ref_p.items():
+        torch.testing.assert_close(got_p[name], w, rtol=2e-4, atol=2e-6)
 
 
 @pytest.mark.cuda
