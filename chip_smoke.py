@@ -22,7 +22,9 @@ Phases, each printing its result; any failure exits non-zero:
      the main shapes the mma.sync kernels they replaced are timed beside
      them; K1 also at the infer CLI's shapes (768x512) and at SDXL's
      head_dim-64 shapes (1024x1024: X1 = (2, 10, 4096, 64) at UNet level 1,
-     X2 = (2, 20, 1024, 64) at level 2 and the mid block);
+     X2 = (2, 20, 1024, 64) at level 2 and the mid block) and at the
+     init-image paths' (512 px, one image: C0 = (2, 8, 4096, 40), C1 =
+     (2, 8, 1024, 80));
   3b. dq order: the fused backward at the training shapes gives the same
      dq, dk, dv bits over 50 calls, alone and beside a busy stream, and is
      timed in turns against a build of its source that adds dQ in fp32 in
@@ -111,8 +113,25 @@ Phases, each printing its result; any failure exits non-zero:
      draws; the loss within 1e-5 and the masters within rtol 2e-4, atol
      2e-6 of the step without; peak memory, time and K2 launches (15) of
      each.
-Phase 9 runs after phase 3, phases 10 to 17 after phase 5 (before the
-bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
+ 21. the init-image paths on the serving bundle (one image, 512 px, 50
+     DDIM steps): img2img at strength 0.8 (400 K1 launches; at strength 1
+     generate's bits), 4-channel inpainting at strength 1 (500; the final
+     latents outside the mask the clean image latents bit for bit;
+     generate_async's bits), a second full-width UNet with 9 input channels
+     (500; built, run, freed), ControlNet inpainting with a full-width
+     seeded ControlNet (700 each: scale 1 to 0.8 of the steps, guess mode;
+     scale 0 within one grey level of plain inpainting; a ControlNet call
+     and a UNet call profiled);
+ 22. DeepCache on the serving bundle (batch 4, 50 DDIM steps, 512 px): the
+     split invariant at full width; cache_interval 1, 2, 3 in turns, twice
+     (500, 375, 335 K1 launches), s/request and drift against interval 1;
+     SDXL at interval 3 inside phase 16 (1190 launches: the cached steps
+     launch none);
+ 23. infer variants (after phase 13, on its set): `apps.infer.main
+     --init-image --mask-image --strength 1.0` (500 K1 launches) and
+     `--cache-interval 3` (335), at the JAX defaults.
+Phase 9 runs after phase 3, phases 21, 22 and then 10 to 17 after phase 5
+(before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
 (1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
 Kernel times on the card are `cuda_ms`: CUDA events around calls the host
 queued behind a sleep kernel, so the host's time per call is not counted;
@@ -326,6 +345,10 @@ def kernel_phase():
         # UNet level 1 (X1) and of level 2 and the mid block (X2)
         ("sdxl_level1", (2, 10, 4096, 64), 4096, torch.bfloat16, 20),
         ("sdxl_level2", (2, 20, 1024, 64), 1024, torch.bfloat16, 50),
+        # img2img, inpaint and ControlNet inpaint at 512 px, one image (CFG
+        # pair): UNet and ControlNet levels 0 (C0) and 1 (C1)
+        ("init_image_level0", (2, 8, 4096, 40), 4096, torch.bfloat16, 20),
+        ("init_image_level1", (2, 8, 1024, 80), 1024, torch.bfloat16, 50),
         ("level0_fp16", (8, 8, 4096, 40), 4096, torch.float16, None),
         ("level1_fp16", (8, 8, 1024, 80), 1024, torch.float16, None),
         ("ragged_bf16_d40", (2, 3, 1000, 40), 1037, torch.bfloat16, None),
@@ -873,30 +896,20 @@ def unet_path_check(bundle):
                 max_abs_out=scale)
 
 
-def profile_unet(bundle, top: int = 12, inputs=None, label=None):
-    """Device time of one full-width UNet call by kernel, from
-    torch.profiler: the total, the share of the call's wall time the card
-    was busy, and the `top` kernels. inputs: (x, t, context, added_cond);
-    by default SD1.5's batch 8 (CFG at 4 images), 64x64 latents."""
+def profile_call(fn, top: int = 12):
+    """Device time of one call of fn by kernel, from torch.profiler (after
+    one call outside it): the wall ms, the device ms, and the `top`
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if inputs is None:
-        gen = torch.Generator("cuda").manual_seed(3)
-        inputs = (torch.randn((8, 64, 64, 4), generator=gen, device="cuda"),
-                  torch.full((8,), 501.0, device="cuda"),
-                  torch.randn((8, 81, 768), generator=gen, device="cuda"),
-                  None)
-        label = "bf16, batch 8, 64x64 latents"
-    x, t, ctx, added = inputs
-    unet = bundle.infer_unet(1.0)
     with torch.no_grad():
-        unet(x, t, ctx, added_cond=added)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            unet(x, t, ctx, added_cond=added)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -909,12 +922,38 @@ def profile_unet(bundle, top: int = 12, inputs=None, label=None):
                  ms=e.self_device_time_total / 1e3,
                  share=e.self_device_time_total / 1e3 / device_ms)
             for e in kernels[:top]]
-    log(f"UNet call profile ({label}): wall {wall_ms:.3f} ms, device busy "
-        f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%})")
-    for r in rows:
+    return dict(wall_ms=wall_ms, device_ms=device_ms, top=rows)
+
+
+def log_profile(label: str, prof) -> None:
+    log(f"{label}: wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_ms']:.3f} ms "
+        f"({prof['device_ms'] / prof['wall_ms']:.1%})")
+    for r in prof["top"]:
         log(f"  {r['ms']:9.3f} ms {r['share']:6.1%} x{r['calls']:<4d} "
             f"{r['kernel']}")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, top=rows)
+
+
+def profile_unet(bundle, top: int = 12, inputs=None, label=None):
+    """Device time of one full-width UNet call by kernel, from
+    torch.profiler (`profile_call`): the total, the share of the call's
+    wall time the card was busy, and the `top` kernels. inputs: (x, t,
+    context, added_cond); by default SD1.5's batch 8 (CFG at 4 images),
+    64x64 latents."""
+    import torch
+
+    if inputs is None:
+        gen = torch.Generator("cuda").manual_seed(3)
+        inputs = (torch.randn((8, 64, 64, 4), generator=gen, device="cuda"),
+                  torch.full((8,), 501.0, device="cuda"),
+                  torch.randn((8, 81, 768), generator=gen, device="cuda"),
+                  None)
+        label = "bf16, batch 8, 64x64 latents"
+    x, t, ctx, added = inputs
+    unet = bundle.infer_unet(1.0)
+    prof = profile_call(lambda: unet(x, t, ctx, added_cond=added), top)
+    log_profile(f"UNet call profile ({label})", prof)
+    return prof
 
 
 def training_path(bundle):
@@ -2289,6 +2328,8 @@ def sdxl_path():
         raise AssertionError(f"SDXL batch of 2: {pair.shape}, request 0 off "
                              f"the request alone by {diff} grey levels")
 
+    deepcache = sdxl_deepcache(pipe, face, kw, out.astype(int))
+
     gen = torch.Generator("cuda").manual_seed(4)
     inputs = (torch.randn((2, 128, 128, 4), generator=gen, device="cuda"),
               torch.full((2,), 501.0, device="cuda"),
@@ -2306,7 +2347,7 @@ def sdxl_path():
         expected_launches=expected, launches_by_route=by_route,
         attention_checks=attention, batch2_s=pair_s,
         batch2_vs_alone_max_diff=diff, pooled_max_abs_diff=pooled,
-        unet_profile=profile)
+        unet_profile=profile, deepcache=deepcache)
 
 
 def sdxl_infer_phase(bundle, sd15_paths, outdir):
@@ -2984,6 +3025,409 @@ def train_cli_phase(paths, outdir, k2_per_step: int = 10):
                                              pixel["s_per_step"]))
 
 
+def counted(fn):
+    """fn() with every kernel's launch count set to 0 just before it:
+    (result, seconds, launches [K1, K2, K3 + K4, K5, K6], K1's by route)."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    counters = launch_counters() + bn_counters()
+    fa.reset_launches(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, [w.launches for w in counters],
+            dict(fa.flash_attention_fwd.launches_by_route))
+
+
+def expect_k1(what: str, launches, by_route, n: int) -> None:
+    """K1 launched n times, all on the sm90 route, and no other kernel."""
+    if launches != [n, 0, 0, 0, 0] or by_route["sm90"] != n:
+        raise AssertionError(f"{what}: launches K1, K2, K3 + K4, K5, K6 "
+                             f"{launches} (K1 {by_route}), expected K1 {n} "
+                             "on sm90 only")
+
+
+def init_image_inputs(height: int = 512, width: int = 512):
+    """A seeded random init image and a centre mask (white regenerates)."""
+    import numpy as np
+    init = np.random.RandomState(5).randint(0, 255, (height, width, 3),
+                                            np.uint8)
+    mask = np.zeros((height, width), np.uint8)
+    mask[height // 4:3 * height // 4, width // 4:3 * width // 4] = 255
+    return init, mask
+
+
+def init_image_phase(bundle):
+    """img2img, 4- and 9-channel inpainting and ControlNet inpainting on the
+    serving bundle (one image, 512 px, 50 DDIM steps, CFG), each warmed up
+    at 2 steps first:
+      - img2img at strength 0.8: a finite (1, 512, 512, 3) image, K1 400
+        times (40 kept steps x 10) on sm90; at strength 1 the uint8 bits
+        of text to image from the same seed;
+      - 4-channel inpaint at strength 1: 500 K1 launches; the final latents
+        outside the latent mask the clean image latents bit for bit (the
+        last blend target is 1.0 x0 + 0.0 noise); generate_async the same
+        bits as generate;
+      - a second full-width UNet with sample_channels 9 (N(0, 0.02) from a
+        seed), swapped into the bundle, run and freed: 500 K1 launches, a
+        finite image;
+      - ControlNet inpaint with a full-width ControlNet (control pyramid
+        16, 32, 96, 256; N(0, 0.02) weights from a seed, the output
+        convolutions included): controlnet_scale 1 with
+        control_guidance_end 0.8, then guess mode, 700 K1 launches each (10
+        UNet + 4 ControlNet a step); controlnet_scale 0 within one grey
+        level of plain inpainting; one ControlNet call and one UNet call
+        (with its residuals) under torch.profiler."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.models import UNet, make_controlnet
+    from consistentid_torch.pipelines import (
+        ConsistentIDControlNetInpaintPipeline, ConsistentIDImg2ImgPipeline,
+        ConsistentIDInpaintPipeline, ConsistentIDPipeline, preprocess_mask)
+    from consistentid_torch.testing import synthetic_clip_tokenizer
+    from consistentid_torch.utils.image import to_uint8
+
+    cfg = PipelineConfig(height=512, width=512, num_inference_steps=50,
+                         start_merge_step=30)
+    tok = synthetic_clip_tokenizer()
+    t2i, img2img, inpaint = (cls(bundle, tok, pipeline_config=cfg) for cls in (
+        ConsistentIDPipeline, ConsistentIDImg2ImgPipeline,
+        ConsistentIDInpaintPipeline))
+    face, labels, faceid = face_inputs()
+    init, mask = init_image_inputs()
+    kw = dict(parsing_labels=labels, faceid_embeds=faceid)
+    out = {}
+
+    def finite_image(what, images):
+        if images.shape != (1, 512, 512, 3) or not torch.isfinite(
+                images.float()).all():
+            raise AssertionError(f"{what}: output {tuple(images.shape)}, "
+                                 "expected a finite (1, 512, 512, 3) image")
+
+    # img2img
+    img2img.generate(PROMPT, face, init, strength=0.8, seed=0,
+                     num_inference_steps=2, **kw)
+    images, s, launches, by_route = counted(lambda: img2img.generate(
+        PROMPT, face, init, strength=0.8, seed=1, return_float=True, **kw))
+    finite_image("img2img", images)
+    expect_k1("img2img (strength 0.8, 40 of 50 steps)", launches, by_route,
+              400)
+    stages = dict(img2img.last_stage_ms)
+    full = img2img.generate(PROMPT, face, init, strength=1.0, seed=2, **kw)
+    t2i_u8 = t2i.generate(PROMPT, face, seed=2, **kw)
+    same = bool(np.array_equal(full, t2i_u8))
+    log(f"img2img (strength 0.8, 50 DDIM steps, 512 px): {s:.3f} s, stages "
+        f"ms { {k: round(v, 1) for k, v in stages.items()} }, K1 launches "
+        f"{launches[0]} {by_route}; strength 1 against generate from the "
+        f"same seed: bits equal {same}")
+    if not same:
+        raise AssertionError("img2img at strength 1 is not generate's bits")
+    out["img2img"] = dict(seconds=s, launches=launches[0],
+                          launches_by_route=by_route, stage_ms=stages,
+                          strength1_equals_generate=same)
+
+    # 4-channel inpainting: the blend's exact unmasked latents, async bits
+    inpaint.generate(PROMPT, face, init, mask, seed=0,
+                     num_inference_steps=2, **kw)
+    seen = {}
+    encode, decode = inpaint._encode_init, inpaint._decode
+
+    def spy_encode(*args):
+        result = encode(*args)
+        seen["image"] = result[0]
+        return result
+
+    def spy_decode(final):
+        seen["final"] = final
+        return decode(final)
+
+    inpaint._encode_init, inpaint._decode = spy_encode, spy_decode
+    try:
+        images, s, launches, by_route = counted(lambda: inpaint.generate(
+            PROMPT, face, init, mask, strength=1.0, seed=3,
+            return_float=True, **kw))
+    finally:
+        del inpaint._encode_init, inpaint._decode
+    finite_image("inpaint", images)
+    expect_k1("inpaint (strength 1, 50 steps)", launches, by_route, 500)
+    keep = (torch.from_numpy(preprocess_mask(mask, 512, 512, 64, 64)[1])
+            .cuda().expand_as(seen["final"]) == 0)
+    unmasked_equal = bool(torch.equal(seen["final"][keep],
+                                      seen["image"].float()[keep]))
+    inpaint_u8 = to_uint8(images).cpu().numpy()
+    stages = dict(inpaint.last_stage_ms)
+    async_u8 = inpaint.generate_async(PROMPT, face, init, mask, strength=1.0,
+                                      seed=3, **kw)()
+    async_equal = bool(np.array_equal(async_u8, inpaint_u8))
+    log(f"inpaint, 4-channel (strength 1, 50 DDIM steps, 512 px, centre "
+        f"mask): {s:.3f} s, stages ms "
+        f"{ {k: round(v, 1) for k, v in stages.items()} }, K1 launches "
+        f"{launches[0]} {by_route}; final latents outside the mask the image "
+        f"latents bit for bit: {unmasked_equal} ({int(keep.sum())} values); "
+        f"generate_async bits equal: {async_equal}")
+    if not (unmasked_equal and async_equal):
+        raise AssertionError("inpaint: unmasked latents or async bits differ")
+    out["inpaint"] = dict(seconds=s, launches=launches[0],
+                          launches_by_route=by_route, stage_ms=stages,
+                          unmasked_latents_bit_equal=unmasked_equal,
+                          unmasked_values=int(keep.sum()),
+                          async_bits_equal=async_equal)
+
+    # 9-channel inpainting: a second UNet, swapped in, run and freed
+    cfg9 = dataclasses.replace(bundle.unet_config, sample_channels=9)
+    with torch.device("meta"):
+        unet9 = UNet(cfg9)
+    unet9.to_empty(device="cuda")
+    unet9.to(bundle.dtype)
+    unet9.requires_grad_(False)
+    gen = torch.Generator("cuda").manual_seed(9)
+    with torch.no_grad():
+        for p in unet9.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    saved = bundle.unet, bundle.unet_config
+    bundle.unet, bundle.unet_config = unet9, cfg9
+    try:
+        pipe9 = ConsistentIDInpaintPipeline(bundle, tok, pipeline_config=cfg)
+        pipe9.generate(PROMPT, face, init, mask, seed=0,
+                       num_inference_steps=2, **kw)
+        images, s, launches, by_route = counted(lambda: pipe9.generate(
+            PROMPT, face, init, mask, strength=1.0, seed=3,
+            return_float=True, **kw))
+        stages = dict(pipe9.last_stage_ms)
+    finally:
+        bundle.unet, bundle.unet_config = saved
+        del unet9, pipe9
+        gc.collect()
+        torch.cuda.empty_cache()
+    finite_image("inpaint, 9-channel", images)
+    expect_k1("inpaint, 9-channel", launches, by_route, 500)
+    log(f"inpaint, 9-channel UNet (strength 1, 50 DDIM steps): {s:.3f} s, "
+        f"stages ms { {k: round(v, 1) for k, v in stages.items()} }, K1 "
+        f"launches {launches[0]} {by_route}")
+    out["inpaint9"] = dict(seconds=s, launches=launches[0],
+                           launches_by_route=by_route, stage_ms=stages)
+
+    # ControlNet inpainting
+    t0 = time.perf_counter()
+    net = make_controlnet(bundle.unet_config, in_channels=4,
+                          dtype=bundle.dtype, device="cuda")
+    net.random_params(torch.Generator("cuda").manual_seed(11))
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"ControlNet: {n_params / 1e6:.1f} M params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cn = ConsistentIDControlNetInpaintPipeline(
+        bundle, tok, pipeline_config=cfg, controlnet=net,
+        controlnet_scale=1.0, control_guidance_end=0.8)
+    cn_kw = dict(kw, control_image=init, strength=1.0, seed=3)
+    cn.generate(PROMPT, face, init, mask, **dict(cn_kw,
+                                                 num_inference_steps=2))
+    runs = {}
+    for mode in ("scale_1_end_0.8", "guess_mode"):
+        cn.guess_mode = mode == "guess_mode"
+        images, s, launches, by_route = counted(lambda: cn.generate(
+            PROMPT, face, init, mask, return_float=True, **cn_kw))
+        finite_image(f"ControlNet inpaint ({mode})", images)
+        expect_k1(f"ControlNet inpaint ({mode})", launches, by_route, 700)
+        u8 = to_uint8(images).cpu().numpy()
+        runs[mode] = dict(seconds=s, launches=launches[0],
+                          launches_by_route=by_route,
+                          stage_ms=dict(cn.last_stage_ms),
+                          mean_abs_diff_vs_plain_inpaint=float(np.abs(
+                              u8.astype(int) - inpaint_u8).mean()))
+        log(f"ControlNet inpaint ({mode}, 50 DDIM steps): {s:.3f} s, stages "
+            f"ms { {k: round(v, 1) for k, v in cn.last_stage_ms.items()} }, "
+            f"K1 launches {launches[0]} {by_route}, mean |image - plain "
+            f"inpaint| {runs[mode]['mean_abs_diff_vs_plain_inpaint']:.3f} "
+            "grey levels")
+    cn.guess_mode, cn.controlnet_scale = False, 0.0
+    zero = cn.generate(PROMPT, face, init, mask, **cn_kw)
+    zero_diff = int(np.abs(zero.astype(int) - inpaint_u8).max())
+    log(f"ControlNet inpaint at controlnet_scale 0 against plain inpaint: "
+        f"max difference {zero_diff} grey levels (allowed 1)")
+    if zero_diff > 1:
+        raise AssertionError("ControlNet at scale 0 is off plain inpaint by "
+                             f"{zero_diff} grey levels")
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    x = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((2,), 501.0, device="cuda")
+    ctx = torch.randn((2, 81, 768), generator=gen, device="cuda")
+    control = torch.rand((2, 512, 512, 3), generator=gen, device="cuda")
+    unet = bundle.infer_unet(1.0)
+    with torch.no_grad():
+        down, mid = net(x, t, ctx, control)
+    prof_cn = profile_call(lambda: net(x, t, ctx, control))
+    prof_unet = profile_call(lambda: unet(
+        x, t, ctx, down_block_residuals=down, mid_residual=mid))
+    log_profile("ControlNet call (bf16, CFG batch 2, 64x64 latents)", prof_cn)
+    log_profile("UNet call with its residuals (the same step)", prof_unet)
+    share = prof_cn["device_ms"] / (prof_cn["device_ms"]
+                                    + prof_unet["device_ms"])
+    log(f"ControlNet share of a step's device time: {share:.1%}")
+    out["controlnet_inpaint"] = dict(
+        params_m=n_params / 1e6, runs=runs, scale0_max_diff=zero_diff,
+        profile=dict(controlnet=prof_cn, unet=prof_unet,
+                     controlnet_device_share=share))
+    del cn, net, unet, down, mid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+DEEPCACHE_K1 = {1: 500, 2: 375, 3: 335}   # batch 4, 50 steps: full x 10
+#                                          + cached x 5 (level 0 only)
+
+
+def deepcache_phase(bundle, rounds: int = 2):
+    """DeepCache on the serving bundle at the headline request (batch 4, 50
+    DDIM steps, 512 px): the split invariant at full width (the shallow
+    path fed the full path's own deep feature reproduces the full output
+    within the 16-bit kernel limit); then cache_interval 1, 2 and 3 in
+    turns, `rounds` times: s/request, K1 launches per request (500, 375,
+    335, all sm90), the mean grey-level drift against interval 1
+    (recorded, not bounded)."""
+    import numpy as np
+    import torch
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.testing import (KERNEL_REL_L2_16BIT,
+                                            synthetic_clip_tokenizer, rel_l2)
+    from consistentid_torch.utils.image import to_uint8
+
+    gen = torch.Generator("cuda").manual_seed(13)
+    x = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((8,), 501.0, device="cuda")
+    ctx = torch.randn((8, 81, 768), generator=gen, device="cuda")
+    unet = bundle.infer_unet(1.0)
+    with torch.no_grad():
+        full, deep = unet(x, t, ctx, return_deep=True)
+        shallow, _, launches, _ = counted(lambda: unet(x, t, ctx,
+                                                       deep_feature=deep))
+    split_rel = rel_l2(shallow, full)
+    log(f"DeepCache split at full width (batch 8, 64x64 latents): shallow "
+        f"path on the full path's deep feature {tuple(deep.shape)}: "
+        f"relative L2 {split_rel:.3g} (limit {KERNEL_REL_L2_16BIT:g}), K1 "
+        f"launches of the shallow call {launches[0]}")
+    if not split_rel <= KERNEL_REL_L2_16BIT or launches[0] != 5:
+        raise AssertionError("DeepCache split invariant failed")
+    del unet, full, deep, shallow
+
+    pipe = ConsistentIDPipeline(
+        bundle, synthetic_clip_tokenizer(),
+        pipeline_config=PipelineConfig(height=512, width=512,
+                                       num_inference_steps=50,
+                                       start_merge_step=30))
+    face, labels, faceid = face_inputs()
+    kw = dict(parsing_labels=labels, faceid_embeds=faceid,
+              num_images_per_prompt=4)
+    for ci in (2, 3):
+        pipe.generate(PROMPT, face, seed=0, num_inference_steps=4,
+                      cache_interval=ci, **kw)
+    seconds = {ci: [] for ci in DEEPCACHE_K1}
+    images, by_route = {}, {}
+    for _ in range(rounds):
+        for ci, n in DEEPCACHE_K1.items():
+            imgs, s, launches, routes = counted(lambda: pipe.generate(
+                PROMPT, face, seed=1, cache_interval=ci, return_float=True,
+                **kw))
+            expect_k1(f"DeepCache interval {ci}", launches, routes, n)
+            if not torch.isfinite(imgs.float()).all():
+                raise AssertionError(f"DeepCache interval {ci}: non-finite")
+            seconds[ci].append(s)
+            images[ci] = to_uint8(imgs).cpu().numpy().astype(int)
+            by_route[ci] = routes
+    drift = {ci: float(np.abs(images[ci] - images[1]).mean())
+             for ci in (2, 3)}
+    mean_s = {ci: sum(v) / len(v) for ci, v in seconds.items()}
+    for ci in DEEPCACHE_K1:
+        log(f"DeepCache interval {ci} (batch 4, 50 DDIM steps, 512 px): "
+            f"s/request {seconds[ci]} (mean {mean_s[ci]:.3f}, "
+            f"{mean_s[ci] / mean_s[1]:.3f}x interval 1), K1 launches "
+            f"{DEEPCACHE_K1[ci]} {by_route[ci]}"
+            + (f", mean drift against interval 1 {drift[ci]:.3f} grey "
+               "levels" if ci > 1 else ""))
+    return dict(split_rel_l2=split_rel, seconds=seconds, mean_s=mean_s,
+                launches=dict(DEEPCACHE_K1), launches_by_route=by_route,
+                mean_drift_vs_interval1=drift)
+
+
+def sdxl_deepcache(pipe, face, kw, reference):
+    """SDXL at 1024x1024, 50 DDIM steps, cache_interval 3: 1190 K1 launches
+    (17 full UNet calls x 70; level 0 has no attention, so the cached steps
+    launch none), finite; its seconds and mean drift against `reference`,
+    the uncached request's uint8 image."""
+    import numpy as np
+    import torch
+    from consistentid_torch.utils.image import to_uint8
+
+    pipe.generate(PROMPT, face, seed=0, num_inference_steps=4,
+                  cache_interval=3, **kw)
+    images, s, launches, by_route = counted(lambda: pipe.generate(
+        PROMPT, face, seed=1, cache_interval=3, return_float=True, **kw))
+    if not torch.isfinite(images).all():
+        raise AssertionError("SDXL DeepCache: non-finite decoded images")
+    n = SDXL_K1_PER_UNET_CALL * 17
+    expect_k1("SDXL DeepCache interval 3", launches, by_route, n)
+    drift = float(np.abs(to_uint8(images).cpu().numpy().astype(int)
+                         - reference).mean())
+    log(f"SDXL DeepCache interval 3 (1 image, 1024x1024, 50 DDIM steps): "
+        f"{s:.3f} s, K1 launches {launches[0]} {by_route}, mean drift "
+        f"against interval 1 {drift:.3f} grey levels")
+    return dict(seconds=s, launches=launches[0], launches_by_route=by_route,
+                mean_drift_vs_interval1=drift)
+
+
+def infer_variants_phase(paths, outdir):
+    """`apps.infer.main` on the written set at the JAX defaults (Euler, 50
+    steps, 768x512, CFG 5, seed 2024) with `--init-image --mask-image
+    --strength 1.0` (a 768x512 PNG and a grey centre-mask PNG): a (768,
+    512, 3) PNG and 500 K1 launches; and with `--cache-interval 3`: 335 K1
+    launches (17 full calls x 10 + 33 cached x 5); each with its load."""
+    import numpy as np
+    from consistentid_torch.apps import infer
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    init, mask = init_image_inputs(768, 512)
+    files = {}
+    for name, arr in (("init", init), ("mask", mask)):
+        files[name] = str(Path(outdir) / f"{name}.png")
+        with open(files[name], "wb") as f:
+            f.write(encode_png(arr))
+    base = ["--base", paths["base"],
+            "--consistentid", paths["consistentid_path"],
+            "--image-encoder", paths["image_encoder_path"],
+            "--bisenet", paths["bisenet_path"],
+            "--arcface", paths["arcface_path"],
+            "--scrfd", paths["scrfd_path"],
+            "--image", str(Path(outdir) / "face.png"), "--prompt", PROMPT]
+    out = {}
+    for name, flags, n in (
+            ("inpaint", ["--init-image", files["init"], "--mask-image",
+                         files["mask"], "--strength", "1.0"], 500),
+            ("deepcache", ["--cache-interval", "3"], 335)):
+        png_path = str(Path(outdir) / f"infer_{name}.png")
+        pipe, s, launches, by_route = counted(lambda: infer.main(
+            base + flags + ["--out", png_path]))
+        expect_k1(f"infer {name}", launches, by_route, n)
+        with open(png_path, "rb") as f:
+            png = decode_png(f.read())
+        if png.shape != (768, 512, 3) or png.dtype != np.uint8:
+            raise AssertionError(f"infer {name} PNG {png.shape}")
+        stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+        log(f"infer CLI {' '.join(f for f in flags if f.startswith('--'))} "
+            f"(Euler, 50 steps, 768x512): {s:.3f} s with the load, stages ms "
+            f"{stages}, K1 launches {launches[0]} {by_route}; PNG "
+            f"{png.shape}")
+        out[name] = dict(seconds=s, stage_ms=stages, launches=launches[0],
+                         launches_by_route=by_route)
+        del pipe
+        gc.collect()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3024,6 +3468,8 @@ def main() -> int:
     bundle, main = main_path()
     path = unet_path_check(bundle)
     profile = profile_unet(bundle)
+    init_paths = init_image_phase(bundle)
+    deepcache = deepcache_phase(bundle)
     hooks, perception = perception_phase()
     photo = photo_generate(bundle, *hooks)
     tmp = tempfile.mkdtemp(prefix="cid_checkpoints_")
@@ -3032,6 +3478,7 @@ def main() -> int:
         loaded = {**written, **load_phase(bundle, hooks, paths)}
         del hooks
         infer_pipe, inferred = infer_phase(paths, tmp)
+        infer_variants = infer_variants_phase(paths, tmp)
         samplers = samplers_phase(infer_pipe)
         served = serve_phase(infer_pipe)
         del infer_pipe
@@ -3112,13 +3559,34 @@ def main() -> int:
          "sdxl_launches_by_route": sdxl["launches_by_route"],
          "launches_per_sdxl_infer_call": sdxl_infer["launches"],
          "sdxl_infer_launches_by_route": sdxl_infer["launches_by_route"],
+         "launches_per_img2img": init_paths["img2img"]["launches"],
+         "launches_per_inpaint": init_paths["inpaint"]["launches"],
+         "launches_per_inpaint9": init_paths["inpaint9"]["launches"],
+         "launches_per_controlnet_inpaint": {
+             mode: r["launches"] for mode, r in
+             init_paths["controlnet_inpaint"]["runs"].items()},
+         "launches_per_deepcache": {
+             **{f"interval_{ci}": n for ci, n in
+                deepcache["launches"].items()},
+             "sdxl_interval_3": sdxl["deepcache"]["launches"]},
+         "launches_per_infer_inpaint": infer_variants["inpaint"]["launches"],
+         "launches_per_infer_deepcache":
+             infer_variants["deepcache"]["launches"],
          "launches_note": "launches: per generate (batch 4, 50 DDIM steps,"
                           " 512 px); also per infer call (768x512, 50 "
                           "Euler steps), per served batch (512 px, 50 "
                           "DDIM steps), per SDXL generate (1 image, "
                           "1024x1024, 50 DDIM steps: 10 calls at X1 = "
                           "sdxl_level1 and 60 at X2 = sdxl_level2 per UNet "
-                          "call) and per SDXL infer call (50 Euler steps)"},
+                          "call) and per SDXL infer call (50 Euler steps); "
+                          "per img2img request (strength 0.8: 40 of 50 DDIM "
+                          "steps), inpaint (4- and 9-channel) and ControlNet "
+                          "inpaint request (strength 1, 50 steps; 4 "
+                          "ControlNet calls a step), DeepCache request (batch"
+                          " 4 at intervals 1, 2, 3; SDXL 1 image at 3) and "
+                          "infer call with --init-image --mask-image and "
+                          "with --cache-interval 3 (768x512, 50 Euler "
+                          "steps); C0, C1: the init-image paths' shapes"},
         {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
@@ -3164,6 +3632,8 @@ def main() -> int:
                                 lib),
                         "main_path_launches": on_paths, "note": note})
     log(json.dumps({"main_path": main, "unet_path_check": path,
+                    "init_image_paths": init_paths, "deepcache": deepcache,
+                    "infer_variants": infer_variants,
                     "perception": perception, "photo_generate": photo,
                     "dq_order": dq_order, "load": loaded, "infer": inferred,
                     "samplers": samplers, "serve": served, "sdxl": sdxl,

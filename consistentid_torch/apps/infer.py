@@ -15,8 +15,13 @@ an SDXL dump (text_encoder_2/, tokenizer_2/ beside SD1.5's subfolders) with
 `load_sdxl_consistentid` and applies the same defaults, as the JAX CLI does
 (its help names infer_SDXL.py's 864x1152 and CFG 7.5, which it does not
 apply). The face image is a PNG or a .npy uint8 array; outputs are PNGs.
-Flags of paths not ported yet (img2img/inpaint, int8, DeepCache) exit with
-an error naming the ROADMAP item.
+
+`--init-image` edits an image instead of starting from noise (img2img,
+SD1.5 only); with `--mask-image` (white regenerates) it inpaints it; a
+`--strength` share of the schedule runs. `--cache-interval N` (text to
+image) runs the full UNet every N-th step and only its level-0 blocks in
+between (DeepCache). The JAX CLI's argument checks apply. The int8 flags
+exit with an error naming their ROADMAP item (A9).
 """
 from __future__ import annotations
 
@@ -71,9 +76,11 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
                         "ships one")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; no fallback between them")
-    # flags of paths not ported yet: kept so they fail loudly
     p.add_argument("--cache-interval", type=int, default=1,
-                   help="DeepCache (not ported yet: 1 only)")
+                   help="DeepCache: run the full UNet every N-th denoise "
+                        "step, only its level-0 blocks in between (1 = "
+                        "off; text to image only)")
+    # flags of a path not ported yet: kept so they fail loudly
     p.add_argument("--quant", choices=["none", "int8", "int8_static"],
                    default="none", help="int8 UNet (not ported yet)")
     p.add_argument("--act-scales", default=None,
@@ -87,38 +94,46 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
                    help="SDXL second tokenizer dir; default: "
                         "<base>/tokenizer_2")
     p.add_argument("--init-image", default=None,
-                   help="img2img init image (not ported yet)")
+                   help="img2img: edit this image (.png or .npy) instead of "
+                        "starting from noise (SD1.5 only); with "
+                        "--mask-image, inpaint it")
     p.add_argument("--mask-image", default=None,
-                   help="inpaint mask (not ported yet)")
+                   help="binary inpaint mask (.png or .npy; white = "
+                        "regenerate); requires --init-image")
     p.add_argument("--strength", type=float, default=0.8,
-                   help="img2img/inpaint strength (not ported yet)")
+                   help="img2img/inpaint: share of the schedule applied to "
+                        "the init image (1.0 = ignore its content)")
     return p
 
 
-NOT_PORTED = (
-    ("init_image", "--init-image", "A6"), ("mask_image", "--mask-image", "A6"),
-    ("act_scales", "--act-scales", "A9"),
-    ("save_act_scales", "--save-act-scales", "A9"),
-)
+NOT_PORTED = (("act_scales", "--act-scales"),
+              ("save_act_scales", "--save-act-scales"))
 
 
 def check_args(parser: argparse.ArgumentParser,
                args: argparse.Namespace) -> None:
-    """Exit through parser.error for flags whose paths are not ported, and
-    for --init-image with --sdxl, which the JAX CLI refuses too."""
+    """Exit through parser.error on the JAX CLI's argument errors, and for
+    the int8 flags, whose path is not ported (ROADMAP A9)."""
+    if args.mask_image and not args.init_image:
+        parser.error("--mask-image requires --init-image")
     if args.init_image and args.sdxl:
         parser.error("--init-image is SD1.5-only (the reference has no "
                      "SDXL img2img/inpaint variant either)")
-    for attr, flag, item in NOT_PORTED:
+    if not 0.0 < args.strength <= 1.0:
+        parser.error(f"--strength must be in (0, 1]: {args.strength}")
+    if args.init_image and args.num_images != 1:
+        parser.error("--num-images > 1 is text-to-image only; the "
+                     "img2img/inpaint paths run one image per call")
+    if args.init_image and args.cache_interval != 1:
+        parser.error("--cache-interval applies to the text-to-image path "
+                     "only; the img2img/inpaint pipelines run the exact UNet")
+    if args.cache_interval < 1:
+        parser.error(f"--cache-interval must be >= 1: {args.cache_interval}")
+    for attr, flag in NOT_PORTED:
         if getattr(args, attr):
-            parser.error(f"{flag} is not ported yet (ROADMAP {item})")
+            parser.error(f"{flag} is not ported yet (ROADMAP A9)")
     if args.quant != "none":
         parser.error(f"--quant {args.quant} is not ported yet (ROADMAP A9)")
-    if args.cache_interval != 1:
-        parser.error("--cache-interval > 1 is not ported yet (ROADMAP A8)")
-    if args.strength != 0.8:
-        parser.error("--strength is for --init-image, not ported yet "
-                     "(ROADMAP A6)")
 
 
 def load_pipeline(args: argparse.Namespace):
@@ -132,7 +147,8 @@ def load_pipeline(args: argparse.Namespace):
         height=args.height, width=args.width,
         num_inference_steps=args.steps,
         guidance_scale=args.guidance_scale,
-        start_merge_step=args.start_merge_step, scheduler=args.scheduler)
+        start_merge_step=args.start_merge_step, scheduler=args.scheduler,
+        cache_interval=args.cache_interval)
     kw = dict(consistentid_path=args.consistentid,
               image_encoder_path=args.image_encoder,
               bisenet_path=args.bisenet, arcface_path=args.arcface,
@@ -151,6 +167,11 @@ def load_pipeline(args: argparse.Namespace):
     if args.tiny:
         from ..testing import tiny_bundle
         kw["bundle"] = tiny_bundle(device=args.device)
+    if args.init_image:
+        from ..pipelines import (ConsistentIDImg2ImgPipeline,
+                                 ConsistentIDInpaintPipeline)
+        kw["pipeline_cls"] = (ConsistentIDInpaintPipeline if args.mask_image
+                              else ConsistentIDImg2ImgPipeline)
     return load_sd15_consistentid(
         args.base, with_safety_checker=not args.no_safety_checker, **kw)
 
@@ -175,14 +196,22 @@ def main(argv: Optional[List[str]] = None):
     args = parser.parse_args(argv)
     check_args(parser, args)
 
-    from ..utils.png import read_image
+    from ..utils.png import read_array, read_image
 
     pipe = load_pipeline(args)
     face = read_image(args.image)
-    images = pipe.generate(
-        args.prompt, face, negative_prompt=args.negative_prompt,
-        seed=args.seed, num_images_per_prompt=args.num_images,
-        ip_scale=args.ip_scale, lora_scale=args.lora_scale)
+    kw = dict(negative_prompt=args.negative_prompt, seed=args.seed,
+              ip_scale=args.ip_scale, lora_scale=args.lora_scale)
+    if args.mask_image:
+        images = pipe.generate(args.prompt, face, read_image(args.init_image),
+                               read_array(args.mask_image),
+                               strength=args.strength, **kw)
+    elif args.init_image:
+        images = pipe.generate(args.prompt, face, read_image(args.init_image),
+                               strength=args.strength, **kw)
+    else:
+        images = pipe.generate(args.prompt, face,
+                               num_images_per_prompt=args.num_images, **kw)
     for name in write_images(images, args.out):
         print(f"saved {name}")
     return pipe

@@ -18,6 +18,8 @@ API:
   POST /generate   JSON {prompt, image_b64 (PNG), negative_prompt?, seed?}
                    -> {image_b64 (PNG), batch_size}
     seed is per request: each request's latents come from its own seed.
+    --cache-interval N serves every batch with DeepCache (the infer CLI's
+    flag, carried by the pipeline's PipelineConfig as in the JAX server).
 
     python -m consistentid_torch.apps.serve --base ... --port 8000
 """
@@ -265,6 +267,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.sdxl or args.tokenizer_2:
         p.error("the server serves SD1.5 only, as the JAX package's does "
                 "(SDXL serving: ROADMAP A5)")
+    if args.init_image or args.mask_image:
+        p.error("the server serves text to image only; --init-image and "
+                "--mask-image are the infer CLI's")
     check_args(p, args)
     pipe = load_pipeline(args)
     server, batcher = serve(pipe, args.port, args.max_batch, args.window_ms,

@@ -173,6 +173,10 @@ class PipelineConfig:
     guidance_scale: float = 5.0
     start_merge_step: int = 30          # reference infer.py:48-49
     scheduler: str = "ddim"
+    # DeepCache cadence (sampling/sampler.py): 1 runs the full UNet every
+    # step; N > 1 refreshes the deep blocks every N-th step and runs only
+    # the level-0 blocks in between
+    cache_interval: int = 1
 
 
 REMAT_POLICIES = ("full", "dots")

@@ -3,8 +3,9 @@
 `params_from_jax` walks a flax parameter tree of numpy arrays (any nesting
 of mappings, e.g. the bundle's {"unet": ..., "vae": ...}, or the SDXL
 bundle's with "text_encoder_2", the UNet's "add_embedding" and linear
-transformer projections) and returns the port's state dict. Module names
-are the same on both sides; only the leaves change:
+transformer projections, or a ControlNet's tree) and returns the port's
+state dict. Module names are the same on both sides; only the leaves
+change:
   - Dense kernel (in, out)      -> Linear weight (out, in)
   - Conv kernel HWIO            -> Conv2d weight OIHW
   - norm scale, Embed embedding -> weight

@@ -2,11 +2,22 @@
 ConsistentID adapter hooks: LoRA on every attention projection and
 decoupled-IP cross-attention.
 
-Counterpart of the JAX package's models/unet.py, without the DeepCache split
-or ControlNet residuals. The SDXL layout (`addition_embed_type="text_time"`)
+Counterpart of the JAX package's models/unet.py. The SDXL layout (`addition_embed_type="text_time"`)
 adds the pooled-text and time-ids embedding to the time embedding and takes
 linear transformer projections. The public forward takes and returns NHWC
 latents and runs NCHW inside.
+
+Two hooks for the inference paths, both in that inner NCHW layout, so
+nothing crosses between modules or steps through a layout conversion:
+  - ControlNet residuals (models/controlnet.py): `down_block_residuals`, one
+    per skip, are added to the skips after the down stack, and
+    `mid_residual` to the mid block's output (diffusers semantics);
+  - the DeepCache split (Ma et al. 2023): `return_deep` also returns the
+    hidden state entering the last (level-0) up block, everything below
+    level 0 computed; `deep_feature` skips those deep blocks and runs only
+    conv_in, the level-0 down blocks (fresh skips), the last up block and
+    conv_out on the given feature. The timestep and the context still enter
+    through the level-0 blocks. Both read the same parameters.
 
 Attention-probability capture for the facial localization loss follows the
 JAX package: `capture_layers` names blocks of UNET_LAYER_NAMES (`up_i` counts
@@ -146,13 +157,34 @@ class UNet(nn.Module):
                 encoder_hidden_states: torch.Tensor, lora_scale: float = 1.0,
                 ip_scale: float = 1.0, capture_layers: Sequence[str] = (),
                 capture_cols: Optional[torch.Tensor] = None,
-                added_cond: Optional[Dict[str, torch.Tensor]] = None):
+                added_cond: Optional[Dict[str, torch.Tensor]] = None,
+                down_block_residuals: Optional[Sequence[torch.Tensor]] = None,
+                mid_residual: Optional[torch.Tensor] = None,
+                deep_feature: Optional[torch.Tensor] = None,
+                return_deep: bool = False):
         """sample (B, H, W, C) latents, timesteps (B,) or scalar, context
         (B, L + ip_num_tokens, cross_attention_dim) -> (B, H, W, C_out);
         with capture_layers, (out, {module path: probs (B, H, Sq, N or K)
         fp32}). The SDXL layout needs added_cond {"text_embeds": (B, Dp)
-        pooled text, "time_ids": (B, 6)}."""
+        pooled text, "time_ids": (B, 6)}.
+
+        down_block_residuals (one (B, C, h, w) per skip) and mid_residual
+        (B, C, h, w) add a ControlNet's outputs; return_deep=True returns
+        (out, deep), deep (B, C, H, W) the last up block's input;
+        deep_feature=deep runs the shallow path on it (neither with
+        residuals, capture_layers or return_deep)."""
         cfg = self.config
+        skip_deep = deep_feature is not None
+        if skip_deep:
+            if down_block_residuals is not None or mid_residual is not None:
+                raise ValueError("deep-feature caching is incompatible with "
+                                 "ControlNet residual injection")
+            if capture_layers:
+                raise ValueError("attention-probability capture (training) "
+                                 "never runs the cached path")
+            if return_deep:
+                raise ValueError("deep_feature and return_deep exclude each "
+                                 "other")
         dtype = self.conv_in.weight.dtype
         n = len(cfg.block_out_channels)
         if timesteps.dim() == 0:
@@ -186,24 +218,7 @@ class UNet(nn.Module):
                 captured[f"['{name}']['{sub}']['attn2']"] = p
             return h
 
-        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
-        skips = [h]
-        for level in range(n):
-            for j in range(cfg.layers_per_block):
-                h = self._block(getattr(self, f"down_{level}_resnet_{j}"),
-                                h, temb)
-                if cfg.down_block_has_attn[level]:
-                    h = attn(f"down_{level}_attn_{j}", f"down_{level}", h)
-                skips.append(h)
-            if level < n - 1:
-                h = getattr(self, f"down_{level}_downsample")(h)
-                skips.append(h)
-
-        h = self._block(self.mid_resnet_0, h, temb)
-        h = attn("mid_attn", "mid", h)
-        h = self._block(self.mid_resnet_1, h, temb)
-
-        for i in range(n):
+        def up_block(i, h):
             level = n - 1 - i
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
@@ -211,8 +226,42 @@ class UNet(nn.Module):
                                 temb)
                 if cfg.down_block_has_attn[level]:
                     h = attn(f"up_{i}_attn_{j}", f"up_{i}", h)
-            if i < n - 1:
-                h = getattr(self, f"up_{i}_upsample")(h)
+            return h
+
+        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+        skips = [h]
+        for level in range(1 if skip_deep else n):
+            for j in range(cfg.layers_per_block):
+                h = self._block(getattr(self, f"down_{level}_resnet_{j}"),
+                                h, temb)
+                if cfg.down_block_has_attn[level]:
+                    h = attn(f"down_{level}_attn_{j}", f"down_{level}", h)
+                skips.append(h)
+            if level < n - 1 and not skip_deep:
+                h = getattr(self, f"down_{level}_downsample")(h)
+                skips.append(h)
+
+        if down_block_residuals is not None:
+            if len(down_block_residuals) != len(skips):
+                raise ValueError(f"{len(down_block_residuals)} residuals vs "
+                                 f"{len(skips)} skips")
+            skips = [s + r.to(s.dtype)
+                     for s, r in zip(skips, down_block_residuals)]
+
+        if skip_deep:
+            h = deep_feature.to(dtype)
+        else:
+            h = self._block(self.mid_resnet_0, h, temb)
+            h = attn("mid_attn", "mid", h)
+            h = self._block(self.mid_resnet_1, h, temb)
+            if mid_residual is not None:
+                h = h + mid_residual.to(h.dtype)
+            for i in range(n - 1):
+                h = getattr(self, f"up_{i}_upsample")(up_block(i, h))
+        deep = h
+        h = up_block(n - 1, h)
 
         out = self.conv_out(F.silu(self.conv_norm_out(h))).permute(0, 2, 3, 1)
+        if return_deep:
+            return out, deep
         return (out, captured) if capture_layers else out

@@ -8,7 +8,10 @@ Counterpart of the JAX package's pipelines/consistentid_sd15.py:
        samplers) -> VAE decode -> uint8 on the device.
 `generate` serves one prompt, `generate_batch` distinct requests as one
 batch (the serving path), and their `_async` variants return a callable
-that collects the images later.
+that collects the images later. Each takes `cache_interval` (the config's
+by default): above 1 the UNet runs DeepCache's split (`_unet_fns`). The
+img2img and inpainting pipelines (pipelines/img2img.py, inpaint.py) build
+on this one.
 
 Face parsing labels and the ArcFace embedding are either injected or made
 from the photo by the `face_parser` and `face_embedder` hooks
@@ -404,13 +407,14 @@ class ConsistentIDPipeline:
                        ip_scale: float, lora_scale: float,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[torch.Tensor] = None,
-                       sync_stages: bool = True) -> torch.Tensor:
+                       sync_stages: bool = True,
+                       cache_interval: int = 1) -> torch.Tensor:
         """Encode + denoise + decode from injected NHWC latents; returns the
         decoded NHWC images in [-1, 1] (the decoder's dtype). `generator`
         or `noise` feed an ancestral sampler (`denoise`). With
         `sync_stages` the stage times land in `last_stage_ms`
         (synchronising at stage boundaries on the card); without, nothing
-        waits for the card."""
+        waits for the card. cache_interval > 1: DeepCache (`_unet_fns`)."""
         clock = _StageClock(latents.device, sync_stages)
         text_b, facial_b, time_ids = self._branches(cond)
         n = latents.shape[0]
@@ -426,25 +430,48 @@ class ConsistentIDPipeline:
             time_ids = rep(time_ids)
         clock.mark("encode")
         plan = make_plan(self.schedule, scheduler, num_steps)
-        unet = self.bundle.infer_unet(lora_scale)
-
-        def unet_fn(x, t, context, added=None):
-            return unet(x, t, context, ip_scale=ip_scale, added_cond=added)
-
+        unet_fn, unet_cached_fn = self._unet_fns(
+            self.bundle.infer_unet(lora_scale), ip_scale, cache_interval)
         final = denoise(unet_fn, latents, text_b, facial_b, plan,
                         guidance_scale, start_merge_step,
-                        generator=generator, noise=noise, time_ids=time_ids)
+                        generator=generator, noise=noise, time_ids=time_ids,
+                        cache_interval=cache_interval,
+                        unet_cached_fn=unet_cached_fn)
         clock.mark("denoise")
         images = self._decode(final)
         clock.mark("decode")
         self.last_stage_ms = clock.stages
         return images
 
-    def _latent_shape(self, height: Optional[int], width: Optional[int]):
+    @staticmethod
+    def _unet_fns(unet, ip_scale: float, cache_interval: int):
+        """(unet_fn, unet_cached_fn) for `denoise`. With cache_interval > 1
+        (DeepCache) the full fn also returns the deep feature and the
+        cached fn runs the shallow path on it (models/unet.py)."""
+        if cache_interval > 1:
+            def unet_fn(x, t, context, added, i):
+                return unet(x, t, context, ip_scale=ip_scale,
+                            added_cond=added, return_deep=True)
+
+            def unet_cached_fn(x, t, context, added, i, deep):
+                return unet(x, t, context, ip_scale=ip_scale,
+                            added_cond=added, deep_feature=deep)
+
+            return unet_fn, unet_cached_fn
+
+        def unet_fn(x, t, context, added, i):
+            return unet(x, t, context, ip_scale=ip_scale, added_cond=added)
+
+        return unet_fn, None
+
+    def _latent_shape(self, height: Optional[int], width: Optional[int],
+                      channels: Optional[int] = None):
+        """(h, w, C) of the latents at a request's size; C the UNet's
+        sample channels unless given."""
         sf = self.bundle.vae_scale_factor
         return ((height or self.config.height) // sf,
                 (width or self.config.width) // sf,
-                self.bundle.unet_config.sample_channels)
+                channels or self.bundle.unet_config.sample_channels)
 
     def _run(self, host_cond: Dict[str, np.ndarray], latents: torch.Tensor,
              generator: torch.Generator, prepare_ms: float,
@@ -452,8 +479,8 @@ class ConsistentIDPipeline:
              start_merge_step: Optional[int] = None,
              num_inference_steps: Optional[int] = None,
              scheduler: Optional[str] = None, ip_scale: float = 1.0,
-             lora_scale: float = 1.0, sync_stages: bool = True
-             ) -> torch.Tensor:
+             lora_scale: float = 1.0, sync_stages: bool = True,
+             cache_interval: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
         images = self._generate_core(
             self.device_cond(host_cond), latents,
@@ -463,7 +490,9 @@ class ConsistentIDPipeline:
             else cfg.start_merge_step,
             num_inference_steps or cfg.num_inference_steps,
             scheduler or cfg.scheduler, ip_scale, lora_scale,
-            generator=generator, sync_stages=sync_stages)
+            generator=generator, sync_stages=sync_stages,
+            cache_interval=(cache_interval if cache_interval is not None
+                            else cfg.cache_interval))
         self.last_stage_ms = {"prepare": prepare_ms, **self.last_stage_ms}
         return images
 
@@ -494,7 +523,8 @@ class ConsistentIDPipeline:
         one is configured; with return_float the decoded [-1, 1] images as
         a tensor on the device instead, before any checker. kwargs:
         num_inference_steps, guidance_scale, start_merge_step, scheduler,
-        ip_scale, lora_scale (the config's values by default). The latents
+        ip_scale, lora_scale, cache_interval (the config's values by
+        default). The latents
         and then any ancestral noise come from one generator seeded `seed`
         on the bundle's device."""
         return self._finish(self._generate_u8(

@@ -16,7 +16,9 @@ pipline_StableDiffusionXL_ConsistentID.py:44-692):
   - the VAE decoded in fp32 when its config says force_upcast (:670-672).
 
 The host prepare, `generate`, `generate_batch` and their async variants come
-from the SD1.5 pipeline; the encode and the decode are SDXL's. As in the JAX
+from the SD1.5 pipeline, DeepCache's `cache_interval` with them (SDXL's level
+0 has no attention, so its cached steps launch no flash kernel); the encode
+and the decode are SDXL's. As in the JAX
 package there is no safety checker.
 """
 from __future__ import annotations

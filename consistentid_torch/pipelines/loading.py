@@ -56,6 +56,7 @@ from ..training.train_step import warm_start_ip_projections
 from .consistentid_sd15 import ConsistentIDPipeline, SD15Bundle
 from .consistentid_sdxl import (ConsistentIDXLPipeline, SDXLBundle,
                                 sdxl_adapter_config)
+from .inpaint import ConsistentIDControlNetInpaintPipeline
 
 
 def _read_maybe_onnx(path: str) -> Dict[str, np.ndarray]:
@@ -192,6 +193,7 @@ def load_sd15_consistentid(
     with_safety_checker: bool = True,
     bundle: Optional[SD15Bundle] = None,
     device: Union[str, torch.device] = "cuda",
+    pipeline_cls: Optional[type] = None,
 ) -> ConsistentIDPipeline:
     """The SD1.5 ConsistentID pipeline from local checkpoints, on `device`
     (the card unless the caller asks for the CPU).
@@ -200,7 +202,17 @@ def load_sd15_consistentid(
     `device`), e.g. `testing.tiny_bundle(device="cpu")` to drive the whole
     load path at toy scale; `dtype` and `device` are then the bundle's.
     Leaves no file provides keep the bundle's initialisation, as the JAX
-    loader keeps its init tree's."""
+    loader keeps its init tree's.
+    pipeline_cls: the ConsistentIDPipeline subclass to assemble (img2img
+    and inpainting read the same files, as the reference's Base mixin
+    composes them). The ControlNet-inpaint pipeline is refused, as the JAX
+    loader refuses it: no file here holds a ControlNet."""
+    if pipeline_cls is not None and issubclass(
+            pipeline_cls, ConsistentIDControlNetInpaintPipeline):
+        raise ValueError(
+            "load_sd15_consistentid does not load a ControlNet; construct "
+            "ConsistentIDControlNetInpaintPipeline directly with one "
+            "(pipelines/inpaint.py)")
     if bundle is None:
         bundle = SD15Bundle(
             unet_config=sd15_unet_config(lora_rank=lora_rank,
@@ -226,7 +238,7 @@ def load_sd15_consistentid(
 
     if tokenizer is None:
         tokenizer = _default_tokenizer(base_dir)
-    return ConsistentIDPipeline(
+    return (pipeline_cls or ConsistentIDPipeline)(
         bundle, tokenizer, pipeline_config=pipeline_config,
         face_parser=face_parser, face_embedder=face_embedder,
         safety_checker=safety_checker)

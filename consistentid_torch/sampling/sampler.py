@@ -10,6 +10,13 @@ call; eps = eps_uncond + g * (eps_cond - eps_uncond). The step
 that follows is the plan's: affine (DDIM, Euler, DDPM with its ancestral
 noise), DPM-Solver++(2M) with the previous x0, or PNDM (PLMS) with the eps
 history and the held warm-up sample.
+
+Two options of the JAX loop's: the inpaint blend, which after each step puts
+the re-noised init latents back outside the mask (4-channel inpainting,
+reference StableDIffusionInpaint_ConsistentID.py:340-352), and the DeepCache
+cadence, which runs the full UNet every `cache_interval`-th step and only its
+level-0 blocks in between, on the deep feature of the last full step
+(models/unet.py).
 """
 from __future__ import annotations
 
@@ -38,16 +45,36 @@ def denoise(unet_fn: Callable, latents: torch.Tensor,
             start_merge_step: int,
             generator: Optional[torch.Generator] = None,
             noise: Optional[torch.Tensor] = None,
-            time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """unet_fn(latents, t, context) -> eps, NHWC; with pooled branches
-    (SDXL) unet_fn(latents, t, context, added), added = {"text_embeds":
+            time_ids: Optional[torch.Tensor] = None,
+            inpaint_mask: Optional[torch.Tensor] = None,
+            inpaint_targets: Optional[torch.Tensor] = None,
+            cache_interval: int = 1,
+            unet_cached_fn: Optional[Callable] = None) -> torch.Tensor:
+    """unet_fn(latents, t, context, added, i) -> eps, NHWC, at step i;
+    `added` is None, or with pooled branches (SDXL) {"text_embeds":
     [pooled_null; pooled] of the step's branch, "time_ids": (2B, 6)
     `time_ids` twice}. Returns the final (scaled-space) latents in fp32.
 
     An ancestral plan (DDPM: coef_n != 0) adds coef_n[i] z_i at step i:
     z_i drawn from `generator` on the latents' device, or taken from
     `noise` (T, B, h, w, C) when given (tests inject the JAX package's
-    draws)."""
+    draws).
+
+    inpaint_mask (B, h, w, 1) with inpaint_targets (T, B, h, w, C): after
+    step i the latents become (1 - mask) * targets[i] + mask * latents.
+
+    cache_interval > 1 (DeepCache): step i runs the full UNet iff
+    i % cache_interval == 0, and `unet_fn` then returns (eps, deep); the
+    other steps run unet_cached_fn(latents, t, context, added, i, deep) on
+    the deep feature of the last full step."""
+    if cache_interval < 1:
+        raise ValueError(f"cache_interval must be >= 1: {cache_interval}")
+    use_cache = cache_interval > 1
+    if use_cache and unet_cached_fn is None:
+        raise ValueError("cache_interval > 1 needs a shallow-path "
+                         "unet_cached_fn")
+    if (inpaint_mask is None) != (inpaint_targets is None):
+        raise ValueError("inpaint_mask and inpaint_targets go together")
     x = latents.float() * plan.init_scale
     contexts = {
         branch_id: torch.cat([b.null, b.context], dim=0)
@@ -68,11 +95,15 @@ def denoise(unet_fn: Callable, latents: torch.Tensor,
         latent_in = torch.cat([x, x], dim=0) * float(plan.c_in[i])
         t = torch.full((latent_in.shape[0],), float(plan.timesteps[i]),
                        device=x.device, dtype=torch.float32)
-        if pooled is None:
-            eps = unet_fn(latent_in, t, contexts[branch])
+        added = None if pooled is None else {
+            "text_embeds": pooled[branch], "time_ids": time_ids2}
+        if not use_cache:
+            eps = unet_fn(latent_in, t, contexts[branch], added, i)
+        elif i % cache_interval == 0:       # step 0 is always full
+            eps, deep = unet_fn(latent_in, t, contexts[branch], added, i)
         else:
-            eps = unet_fn(latent_in, t, contexts[branch], {
-                "text_embeds": pooled[branch], "time_ids": time_ids2})
+            eps = unet_cached_fn(latent_in, t, contexts[branch], added, i,
+                                 deep)
         eps_uncond, eps_cond = eps.float().chunk(2)
         eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
         if plan.kind == "dpmpp_2m":
@@ -103,4 +134,7 @@ def denoise(unet_fn: Callable, latents: torch.Tensor,
                     dtype=x.dtype)
                 x_next = x_next + float(plan.coef_n[i]) * z
             x = x_next
+        if inpaint_mask is not None:
+            mask = inpaint_mask.to(x)
+            x = (1.0 - mask) * inpaint_targets[i].to(x) + mask * x
     return x

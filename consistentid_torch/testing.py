@@ -213,12 +213,16 @@ def random_perception_state(generator: torch.Generator
 
 
 def tiny_bundle(device: Union[str, torch.device] = "cuda",
-                dtype: torch.dtype = torch.float32, seed: int = 0):
-    """A complete SD1.5 ConsistentID bundle at toy scale (random weights)."""
+                dtype: torch.dtype = torch.float32, seed: int = 0,
+                sample_channels: int = 4):
+    """A complete SD1.5 ConsistentID bundle at toy scale (random weights);
+    sample_channels=9: the inpainting UNet's input (latents, mask and
+    masked-image latents)."""
     from .pipelines import SD15Bundle
 
     return SD15Bundle(
         unet_config=UNetConfig(
+            sample_channels=sample_channels,
             block_out_channels=(32, 32, 64, 64),
             layers_per_block=1,
             num_attention_heads=(2, 2, 2, 2),
@@ -245,6 +249,19 @@ def tiny_bundle(device: Union[str, torch.device] = "cuda",
                                        hidden_size=32, intermediate_size=64,
                                        num_layers=2, num_heads=2),
         dtype=dtype, device=device, seed=seed)
+
+
+def tiny_controlnet(unet_config: UNetConfig,
+                    device: Union[str, torch.device] = "cuda",
+                    dtype: torch.dtype = torch.float32, seed: int = 0):
+    """A ControlNet over a tiny bundle's UNet config: the tiny VAE halves
+    the image once, so the control pyramid has one stride-2 conv
+    (16, 32); 4 latent channels in."""
+    from .models.controlnet import make_controlnet
+
+    return make_controlnet(unet_config, cond_embed_channels=(16, 32),
+                           in_channels=4, dtype=dtype, device=device,
+                           seed=seed)
 
 
 def tiny_sdxl_bundle(device: Union[str, torch.device] = "cuda",

@@ -118,6 +118,44 @@ def resize_lanczos_uint8(image: np.ndarray, height: int,
     return np.array(out)
 
 
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's NEAREST source index per output pixel (ImagingScaleAffine): a
+    position starting at half a step, advanced by repeated addition of the
+    step in double precision, truncated."""
+    step = in_size / out_size
+    pos = np.full(out_size, step, np.float64)
+    pos[0] = step * 0.5
+    return np.add.accumulate(pos).astype(np.int64)
+
+
+def resize_nearest_uint8(image: np.ndarray, height: int,
+                         width: int) -> np.ndarray:
+    """PIL NEAREST resize of an (H, W[, C]) uint8 image, bit for bit."""
+    out = np.asarray(image, np.uint8)
+    h, w = out.shape[:2]
+    return np.array(out[_nearest_index(h, height)][:, _nearest_index(w,
+                                                                     width)])
+
+
+def to_grey_uint8(image) -> np.ndarray:
+    """PIL's convert("L") of an (H, W) grey, (H, W, 1), (H, W, 2) grey and
+    alpha, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image: grey kept, alpha
+    dropped, RGB to ITU-R 601 luma in PIL's fixed point ((19595 R + 38470 G
+    + 7471 B + 2^15) >> 16)."""
+    arr = np.asarray(image, np.uint8)
+    if arr.ndim == 2:
+        return np.array(arr)
+    if arr.ndim != 3 or arr.shape[2] not in (1, 2, 3, 4):
+        raise ValueError(f"expected an (H, W[, 1-4]) uint8 image, got "
+                         f"{arr.shape}")
+    if arr.shape[2] <= 2:
+        return np.array(arr[:, :, 0])
+    rgb = arr[:, :, :3].astype(np.uint32)
+    luma = (rgb[:, :, 0] * 19595 + rgb[:, :, 1] * 38470
+            + rgb[:, :, 2] * 7471 + 0x8000) >> 16
+    return luma.astype(np.uint8)
+
+
 def sd_image_preprocess(image, height: int, width: int) -> np.ndarray:
     """Diffusion image input: (H, W, 3) uint8 resized with PIL's LANCZOS
     (`resize_lanczos_uint8`) and scaled to [-1, 1], (1, height, width, 3)

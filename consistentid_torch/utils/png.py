@@ -158,9 +158,15 @@ def as_rgb(image: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
+def read_array(path: str) -> np.ndarray:
+    """An image file as uint8 (H, W[, C]) with the file's own channels (an
+    inpaint mask's grey, say): a PNG, or a .npy array."""
+    if path.endswith(".npy"):
+        return np.asarray(np.load(path), np.uint8)
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
 def read_image(path: str) -> np.ndarray:
     """An image file as uint8 (H, W, 3): a PNG, or a .npy array."""
-    if path.endswith(".npy"):
-        return as_rgb(np.load(path))
-    with open(path, "rb") as f:
-        return as_rgb(decode_png(f.read()))
+    return as_rgb(read_array(path))

@@ -72,19 +72,74 @@ def test_infer_cli_reads_npy_face(synth, tmp_path):
     assert read_image(out).shape == (64, 48, 3)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--init-image", "x.png"], "A6"), (["--mask-image", "x.png"], "A6"),
-    (["--strength", "0.5"], "A6"), (["--quant", "int8"], "A9"),
-    (["--quant", "int8_static"], "A9"), (["--act-scales", "s.npz"], "A9"),
-    (["--save-act-scales", "s.npz"], "A9"),
-    (["--cache-interval", "2"], "A8")])
-def test_unported_flags_exit_with_not_ported_yet(flags, item, capsys):
+@pytest.mark.parametrize("flags, reason", [
+    (["--mask-image", "x.png"], "--mask-image requires --init-image"),
+    (["--init-image", "x.png", "--strength", "1.5"],
+     "--strength must be in (0, 1]"),
+    (["--init-image", "x.png", "--num-images", "2"],
+     "--num-images > 1 is text-to-image only"),
+    (["--quant", "int8"], "not ported yet (ROADMAP A9)"),
+    (["--quant", "int8_static"], "not ported yet (ROADMAP A9)"),
+    (["--act-scales", "s.npz"], "not ported yet (ROADMAP A9)"),
+    (["--save-act-scales", "s.npz"], "not ported yet (ROADMAP A9)"),
+    (["--init-image", "x.png", "--cache-interval", "2"],
+     "--cache-interval applies to the text-to-image path only")])
+def test_unported_flags_exit_with_not_ported_yet(flags, reason, capsys):
+    """The JAX CLI's argument errors (mask without init, strength out of
+    (0, 1], several images or DeepCache from an init image) and the int8
+    flags, whose path is not ported: exit 2 with the reason."""
     with pytest.raises(SystemExit) as exc:
         infer.main(["--base", "b", "--image", "f.png", "--prompt", "p",
                     *flags])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP {item}" in err
+    assert reason in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", ["img2img", "inpaint"])
+def test_infer_cli_edits_an_init_image(synth, tmp_path, mode):
+    """--init-image (a PNG of another size) loads the img2img pipeline, with
+    --mask-image (a grey PNG, white regenerates) the inpainting one, through
+    load_sd15_consistentid(pipeline_cls=...)."""
+    face, init, mask = (tmp_path / n for n in ("face.png", "init.png",
+                                               "mask.png"))
+    Image.fromarray(_face()).save(face)
+    Image.fromarray(_face(2, (40, 56, 3))).save(init)
+    m = np.zeros((64, 48), np.uint8)
+    m[16:48, 12:36] = 255
+    Image.fromarray(m).save(mask)
+    out = str(tmp_path / "edit.png")
+    flags = ["--init-image", str(init), "--strength", "0.5"]
+    if mode == "inpaint":
+        flags += ["--mask-image", str(mask), "--strength", "1.0"]
+    pipe = infer.main(_args(synth, "--image", str(face), "--prompt",
+                            "a photo of a man", "--out", out,
+                            "--no-safety-checker", *flags))
+    assert type(pipe).__name__ == {
+        "img2img": "ConsistentIDImg2ImgPipeline",
+        "inpaint": "ConsistentIDInpaintPipeline"}[mode]
+    assert read_image(out).shape == (64, 48, 3)
+
+
+def test_infer_cli_runs_deepcache(synth, tmp_path):
+    face = tmp_path / "face.png"
+    Image.fromarray(_face()).save(face)
+    out = str(tmp_path / "cached.png")
+    pipe = infer.main(_args(synth, "--image", str(face), "--prompt",
+                            "a woman", "--out", out, "--steps", "4",
+                            "--cache-interval", "3", "--no-safety-checker"))
+    assert pipe.config.cache_interval == 3
+    assert read_image(out).shape == (64, 48, 3)
+
+
+def test_loader_refuses_the_controlnet_pipeline():
+    """As the JAX loader: no file here holds a ControlNet."""
+    from consistentid_torch.pipelines import \
+        ConsistentIDControlNetInpaintPipeline
+    from consistentid_torch.pipelines.loading import load_sd15_consistentid
+    with pytest.raises(ValueError, match="ControlNet"):
+        load_sd15_consistentid(
+            "unused", pipeline_cls=ConsistentIDControlNetInpaintPipeline,
+            device="cpu")
 
 
 def test_serve_parser_defines_each_flag_once():
@@ -98,6 +153,18 @@ def test_serve_parser_defines_each_flag_once():
     assert args.port == 0 and args.max_batch == 2 and args.image is None
     with pytest.raises(SystemExit):
         serve.main(["--base", "b", "--quant", "int8_static"])
+
+
+def test_serve_parser_takes_cache_interval(capsys):
+    """--cache-interval reaches the server's pipeline through its
+    PipelineConfig (infer.load_pipeline); an init image is the infer CLI's
+    alone."""
+    args = serve.build_parser().parse_args(["--base", "b",
+                                            "--cache-interval", "3"])
+    assert args.cache_interval == 3
+    with pytest.raises(SystemExit):
+        serve.main(["--base", "b", "--init-image", "x.png"])
+    assert "text to image only" in capsys.readouterr().err
 
 
 # ------------------------------------------------------------------ serve

@@ -6,8 +6,9 @@ Function's gradients through the kernels against those through the plain
 versions; what the wrappers refuse; two perception networks on the card
 against the CPU; the fused backward's bits over repeated calls; the
 pipeline's async batch; the tiny SDXL generate on the card against the
-CPU. Needs an NVIDIA GPU and nvcc; skips elsewhere. Imports no JAX, so it
-runs on a machine without it:
+CPU; the tiny img2img, inpaint (4- and 9-channel), ControlNet-inpaint and
+DeepCache cores on the card against the CPU. Needs an NVIDIA GPU and
+nvcc; skips elsewhere. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
@@ -63,6 +64,10 @@ def cuda_generator():
     # SDXL at 1024x1024, one image: level 1 (X1), level 2 and mid (X2)
     ((2, 10, 4096, 64), 4096, torch.bfloat16, 1e-2),
     ((2, 20, 1024, 64), 1024, torch.bfloat16, 1e-2),
+    # img2img / inpaint / ControlNet inpaint at 512 px, one image (CFG
+    # pair): UNet (and ControlNet) levels 0 (C0) and 1 (C1)
+    ((2, 8, 4096, 40), 4096, torch.bfloat16, 1e-2),
+    ((2, 8, 1024, 80), 1024, torch.bfloat16, 1e-2),
 ])
 def test_kernel_matches_plain(cuda_generator, shape, sk, dtype, atol):
     g = cuda_generator
@@ -388,6 +393,84 @@ def test_tiny_sdxl_generate_card_vs_cpu(cuda_generator):
     assert gpu_moved == {r: 12 * (r == "f32") for r in gpu_moved}
     assert gpu_img.dtype == torch.float32
     torch.testing.assert_close(gpu_img, cpu_img, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["img2img", "inpaint", "inpaint9",
+                                  "controlnet_inpaint", "deepcache"])
+def test_tiny_init_image_cores_card_vs_cpu(cuda_generator, path):
+    """The tiny fp32 bundle's img2img (strength 0.5), 4- and 9-channel
+    inpaint, ControlNet inpaint (guess mode, a keep window) and DeepCache
+    (interval 2) cores, 4 DDIM steps at 64 px with injected noise, on the
+    card (TF32 off) against the same weights on the CPU: the CPU parity
+    tests' 1e-3 on images in [-1, 1]. Level 0's self-attention (1024
+    tokens) runs K1 on the fp32 route on the card."""
+    import numpy as np
+
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import (
+        ConsistentIDControlNetInpaintPipeline, ConsistentIDImg2ImgPipeline,
+        ConsistentIDInpaintPipeline, ConsistentIDPipeline, preprocess_mask)
+    from consistentid_torch.testing import (synthetic_clip_tokenizer,
+                                            tiny_bundle, tiny_controlnet)
+    from consistentid_torch.utils.image import sd_image_preprocess
+
+    rng = np.random.default_rng(0)
+    face = rng.integers(0, 255, (64, 64, 3), np.uint8)
+    labels = np.zeros((64, 64), np.uint8)
+    labels[8:44, 10:50] = 1
+    labels[26:31, 28:34] = 10
+    faceid = rng.standard_normal((1, 16)).astype(np.float32)
+    init = rng.integers(0, 255, (64, 64, 3), np.uint8)
+    mask = np.zeros((64, 64), np.uint8)
+    mask[16:48, 20:44] = 255
+    noise, posterior = (torch.from_numpy(
+        rng.standard_normal((1, 32, 32, 4), np.float32)) for _ in range(2))
+    channels = 9 if path == "inpaint9" else 4
+    cls = {"img2img": ConsistentIDImg2ImgPipeline,
+           "deepcache": ConsistentIDPipeline,
+           "controlnet_inpaint": ConsistentIDControlNetInpaintPipeline}.get(
+        path, ConsistentIDInpaintPipeline)
+    cpu = tiny_bundle(device="cpu", seed=3, sample_channels=channels)
+    gpu = tiny_bundle(device="cuda", sample_channels=channels)
+    gpu.load_state_dict(cpu.state_dict())
+    nets = {}
+    if path == "controlnet_inpaint":
+        nets["cpu"] = tiny_controlnet(cpu.unet_config, device="cpu")
+        nets["cpu"].random_params(torch.Generator().manual_seed(4), 0.05)
+        nets["cuda"] = tiny_controlnet(cpu.unet_config, device="cuda")
+        nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    outs = []
+    with tf32_off():
+        for bundle in (cpu, gpu):
+            kw = {}
+            if nets:
+                kw = dict(controlnet=nets["cpu" if bundle is cpu else "cuda"],
+                          control_guidance_end=0.6, guess_mode=True)
+            pipe = cls(bundle, synthetic_clip_tokenizer(),
+                       pipeline_config=PipelineConfig(height=64, width=64),
+                       **kw)
+            host = pipe.prepare_conditioning(
+                "a photo of a man", face, parsing_labels=labels,
+                faceid_embeds=faceid)
+            host["init_image"] = sd_image_preprocess(init, 64, 64)
+            host["pixel_mask"], host["latent_mask"] = preprocess_mask(
+                mask, 64, 64, 32, 32)
+            host["control_image"] = host["init_image"] * 0.5 + 0.5
+            cond = pipe.device_cond(host)
+            dev = bundle.device
+            args = (cond, noise.to(dev), 5.0, 1, 4, "ddim", 1.0, 1.0)
+            if path == "deepcache":
+                img = pipe._generate_core(*args, cache_interval=2)
+            elif path == "img2img":
+                img = pipe._img2img_core(*args, 0.5,
+                                         posterior_noise=posterior.to(dev))
+            else:
+                img = pipe._inpaint_core(*args, 0.75,
+                                         posterior_noise=posterior.to(dev))
+            outs.append(img.cpu())
+    assert outs[1].shape == (1, 64, 64, 3)
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-3)
 
 
 def _tiny_sdxl_train_step(bundle, remat=None):

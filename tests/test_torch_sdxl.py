@@ -254,7 +254,7 @@ def test_encode_embeddings_xl(pipes, jax_ref):
     assert text.pooled_null is facial.pooled_null
 
 
-def _torch_unet(x, t, context, added):
+def _torch_unet(x, t, context, added, i=None):
     """A cheap stand-in whose eps depends on the context, the pooled
     embedding and the time ids."""
     shift = (context.mean(dim=(1, 2)) + added["text_embeds"].mean(-1)
