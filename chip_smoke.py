@@ -123,15 +123,35 @@ Phases, each printing its result; any failure exits non-zero:
      scale 0 within one grey level of plain inpainting; a ControlNet call
      and a UNet call profiled);
  22. DeepCache on the serving bundle (batch 4, 50 DDIM steps, 512 px): the
-     split invariant at full width; cache_interval 1, 2, 3 in turns, twice
+     split invariant at full width; cache_interval 1, 2, 3 in turns, once
      (500, 375, 335 K1 launches), s/request and drift against interval 1;
      SDXL at interval 3 inside phase 16 (1190 launches: the cached steps
      launch none);
  23. infer variants (after phase 13, on its set): `apps.infer.main
      --init-image --mask-image --strength 1.0` (500 K1 launches) and
      `--cache-interval 3` (335), at the JAX defaults.
-Phase 9 runs after phase 3, phases 21, 22 and then 10 to 17 after phase 5
-(before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
+ 24. int8 (after phase 22, on the serving bundle): int8_static calibrated
+     on the seeded face (8 steps, 8 int_mm launches per int8 layer); the
+     headline request in bf16, int8 and int8_static in turns, twice:
+     s/request, stages (fold: the LoRA fold and the weight quantization),
+     peak GiB, K1 500 on sm90, torch._int_mm 50 launches per int8 layer,
+     the mean uint8 difference from bf16's; one full-width UNet call of
+     each int8 mode under torch.profiler; DeepCache at interval 3 with int8
+     (K1 335, int_mm 17 full and 33 shallow UNet calls);
+ 25. the int8 micro-table: Int8Conv / Int8Dense (dynamic and static,
+     quantize and dequant included), the int_mm GEMM alone and bf16
+     F.conv2d / F.linear at the headline's L0-L3 3x3 convolutions and L0
+     to_q and GEGLU shapes, beside the int8 and bf16 bounds; int_mm held
+     against the exact integer product, bit for bit;
+ 26. `apps.infer.main --quant int8_static --save-act-scales` (after phase
+     23; it calibrates: K1 580) then `--act-scales` (K1 500): the same PNG
+     bytes;
+ 27. `apps.serve.main --quant int8_static --calib-image` (after phase 15;
+     512 px, max batch 2) answering 2 concurrent requests;
+ 28. SDXL int8_static inside phase 16: calibrated (8 steps), one request
+     at 1024x1024 (K1 3500, int_mm 50 per int8 layer).
+Phase 9 runs after phase 3, phases 21, 22, 24, 25 and then 10 to 17 after
+phase 5 (before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
 (1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
 Kernel times on the card are `cuda_ms`: CUDA events around calls the host
 queued behind a sleep kernel, so the host's time per call is not counted;
@@ -1696,6 +1716,43 @@ def perception_phase():
         chosen_slot=card["best"], classes=int(len(np.unique(labels))))
 
 
+def checker_resize_ms(images) -> dict:
+    """ms of the bicubic resize of `images` to 224 (the port's: PIL's
+    BICUBIC in integer arithmetic, bit for bit): on the card as the safety
+    checker runs it (the host-to-card copy included) and on the host as
+    CLIP's preprocessing runs it, beside torch's antialiased bicubic on the
+    host (one grey level a pass from PIL's). Fails unless the card's
+    result is the host's, bit for bit."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from consistentid_torch.utils.image import resize_bicubic_uint8
+
+    def card():
+        x = torch.from_numpy(np.ascontiguousarray(images)).cuda()
+        return torch.stack([resize_bicubic_uint8(i, 224, 224) for i in x])
+
+    host = np.stack([resize_bicubic_uint8(i, 224, 224) for i in images])
+    if not np.array_equal(card().cpu().numpy(), host):
+        raise AssertionError("the bicubic resize on the card differs from "
+                             "the host's")
+
+    def torch_bicubic():
+        for image in images:
+            x = torch.from_numpy(np.ascontiguousarray(image))
+            x = x.permute(2, 0, 1)[None].float()
+            for size in ((x.shape[2], 224), (224, 224)):
+                x = F.interpolate(x, size=size, mode="bicubic",
+                                  align_corners=False,
+                                  antialias=True).round().clamp(0, 255)
+            x[0].permute(1, 2, 0).to(torch.uint8).numpy()
+
+    return dict(card=host_ms(card, 5),
+                host=host_ms(lambda: [resize_bicubic_uint8(i, 224, 224)
+                                      for i in images], 5),
+                torch_host=host_ms(torch_bicubic, 5))
+
+
 def photo_generate(bundle, parser, embedder, checker):
     """The headline request from the photo alone: the serving bundle with
     the face parser, the face embedder and the full-width random safety
@@ -1717,6 +1774,7 @@ def photo_generate(bundle, parser, embedder, checker):
     sample = np.random.RandomState(3).randint(0, 255, (4, 512, 512, 3),
                                               np.uint8)
     checker_ms = host_ms(lambda: checker(sample), 5)
+    resize_ms = checker_resize_ms(sample)
     counters = launch_counters() + bn_counters()
     fa.reset_launches(*counters)
     torch.cuda.synchronize()
@@ -1739,12 +1797,16 @@ def photo_generate(bundle, parser, embedder, checker):
     log(f"generate from the photo (batch 4, 50 DDIM steps, 512 px, parser,"
         f" embedder and safety checker): {seconds:.3f} s, "
         f"{4 / seconds * 60:.2f} images/min, stages ms {stages}; safety "
-        f"checker alone (4 images) {checker_ms:.2f} ms; flags "
+        f"checker alone (4 images) {checker_ms:.2f} ms; their bicubic "
+        f"resize to 224 on the card {resize_ms['card']:.2f} ms, on the host "
+        f"{resize_ms['host']:.2f} ms (torch's antialiased bicubic on the "
+        f"host {resize_ms['torch_host']:.2f} ms); flags "
         f"{np.asarray(flags).tolist()}; launches K1, K2, K3 + K4, K5, K6 "
         f"{launches} (K1 "
         f"{by_route}); output mean {float(out.mean()):.2f}")
     return dict(seconds=seconds, images_per_min=4 / seconds * 60,
-                stage_ms=stages, checker_ms=checker_ms, launches=launches,
+                stage_ms=stages, checker_ms=checker_ms,
+                checker_resize_ms=resize_ms, launches=launches,
                 launches_by_route=by_route,
                 nsfw_flags=np.asarray(flags).tolist())
 
@@ -2329,6 +2391,7 @@ def sdxl_path():
                              f"the request alone by {diff} grey levels")
 
     deepcache = sdxl_deepcache(pipe, face, kw, out.astype(int))
+    int8_static = sdxl_int8_static(pipe, face, kw, out.astype(int))
 
     gen = torch.Generator("cuda").manual_seed(4)
     inputs = (torch.randn((2, 128, 128, 4), generator=gen, device="cuda"),
@@ -2347,7 +2410,7 @@ def sdxl_path():
         expected_launches=expected, launches_by_route=by_route,
         attention_checks=attention, batch2_s=pair_s,
         batch2_vs_alone_max_diff=diff, pooled_max_abs_diff=pooled,
-        unet_profile=profile, deepcache=deepcache)
+        unet_profile=profile, deepcache=deepcache, int8_static=int8_static)
 
 
 def sdxl_infer_phase(bundle, sd15_paths, outdir):
@@ -3380,6 +3443,19 @@ def sdxl_deepcache(pipe, face, kw, reference):
                 mean_drift_vs_interval1=drift)
 
 
+def infer_args(paths, outdir, *extra):
+    """`apps.infer` arguments over the written set and the PNG face the
+    infer phase wrote, then `extra`."""
+    return ["--base", paths["base"],
+            "--consistentid", paths["consistentid_path"],
+            "--image-encoder", paths["image_encoder_path"],
+            "--bisenet", paths["bisenet_path"],
+            "--arcface", paths["arcface_path"],
+            "--scrfd", paths["scrfd_path"],
+            "--image", str(Path(outdir) / "face.png"), "--prompt", PROMPT,
+            *extra]
+
+
 def infer_variants_phase(paths, outdir):
     """`apps.infer.main` on the written set at the JAX defaults (Euler, 50
     steps, 768x512, CFG 5, seed 2024) with `--init-image --mask-image
@@ -3396,13 +3472,6 @@ def infer_variants_phase(paths, outdir):
         files[name] = str(Path(outdir) / f"{name}.png")
         with open(files[name], "wb") as f:
             f.write(encode_png(arr))
-    base = ["--base", paths["base"],
-            "--consistentid", paths["consistentid_path"],
-            "--image-encoder", paths["image_encoder_path"],
-            "--bisenet", paths["bisenet_path"],
-            "--arcface", paths["arcface_path"],
-            "--scrfd", paths["scrfd_path"],
-            "--image", str(Path(outdir) / "face.png"), "--prompt", PROMPT]
     out = {}
     for name, flags, n in (
             ("inpaint", ["--init-image", files["init"], "--mask-image",
@@ -3410,7 +3479,7 @@ def infer_variants_phase(paths, outdir):
             ("deepcache", ["--cache-interval", "3"], 335)):
         png_path = str(Path(outdir) / f"infer_{name}.png")
         pipe, s, launches, by_route = counted(lambda: infer.main(
-            base + flags + ["--out", png_path]))
+            infer_args(paths, outdir, *flags, "--out", png_path)))
         expect_k1(f"infer {name}", launches, by_route, n)
         with open(png_path, "rb") as f:
             png = decode_png(f.read())
@@ -3426,6 +3495,429 @@ def infer_variants_phase(paths, outdir):
         del pipe
         gc.collect()
     return out
+
+
+# ---------------------------------------------------------------- int8
+
+INT8_MODES = ("bf16", "int8", "int8_static")
+
+
+def int8_layer_counts(bundle):
+    """(int8 layers a full UNet call runs, those of a DeepCache shallow
+    call: the level-0 down blocks and the last up block), counted on the
+    int8 UNet the bundle builds, made on the meta device."""
+    import dataclasses
+
+    import torch
+
+    from consistentid_torch.models import UNet
+    from consistentid_torch.models.layers import Int8Conv, Int8Dense
+    with torch.device("meta"):
+        unet = UNet(dataclasses.replace(bundle.unet_config, lora_rank=0),
+                    quant=True)
+    names = [n for n, m in unet.named_modules()
+             if isinstance(m, (Int8Conv, Int8Dense))]
+    last_up = f"up_{len(bundle.unet_config.block_out_channels) - 1}_"
+    shallow = [n for n in names
+               if n.startswith(("down_0_resnet", "down_0_attn",
+                                f"{last_up}resnet", f"{last_up}attn"))]
+    return len(names), len(shallow)
+
+
+def int8_counted(fn):
+    """`counted(fn)` and the int_mm launches of the same run:
+    (result, seconds, launches [K1, K2, K3 + K4, K5, K6], K1's by route,
+    int_mm launches)."""
+    from consistentid_torch.ops import quant
+    quant.int_mm.launches = 0
+    out, s, launches, by_route = counted(fn)
+    return out, s, launches, by_route, quant.int_mm.launches
+
+
+def int8_headline_phase(bundle, smi: str, rounds: int = 2):
+    """The headline request (batch 4, 50 DDIM steps, 512 px) on the
+    serving bundle in bf16, int8 (dynamic activation scales) and
+    int8_static (calibrated on the seeded face, 8 steps, timed), in turns,
+    `rounds` times: s/request, the stage split (fold: the LoRA fold and,
+    under int8, the weight quantization), peak GiB, K1 launches (500, all
+    sm90) and int_mm launches (50 per int8 layer, none in bf16), finite
+    images and their mean absolute uint8 difference from bf16's. Then
+    DeepCache at interval 3 with int8: 335 K1 launches, int_mm 17 full
+    calls and 33 shallow ones."""
+    import numpy as np
+    import torch
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.testing import synthetic_clip_tokenizer
+    from consistentid_torch.utils.image import to_uint8
+
+    pipe = ConsistentIDPipeline(
+        bundle, synthetic_clip_tokenizer(),
+        pipeline_config=PipelineConfig(height=512, width=512,
+                                       num_inference_steps=50,
+                                       start_merge_step=30))
+    face, labels, faceid = face_inputs()
+    n_layers, n_shallow = int8_layer_counts(bundle)
+    (static, calib_s, launches, by_route,
+     calib_mm) = int8_counted(lambda: pipe.calibrate_int8(
+         PROMPT, face, parsing_labels=labels, faceid_embeds=faceid))
+    log(f"int8_static calibration (8 steps, batch 3 contexts, 512 px): "
+        f"{calib_s:.3f} s, {len(static.bundle.act_scales)} top-level "
+        f"modules, int_mm launches {calib_mm} (8 x {n_layers}), K1 "
+        f"{launches[0]}")
+    if calib_mm != 8 * n_layers:
+        raise AssertionError(f"calibration: {calib_mm} int_mm launches, "
+                             f"expected {8 * n_layers}")
+    pipes = {"bf16": pipe, "int8": pipe.with_quant("int8"),
+             "int8_static": static}
+    kw = dict(parsing_labels=labels, faceid_embeds=faceid,
+              num_images_per_prompt=4)
+    for p in pipes.values():
+        p.generate(PROMPT, face, seed=0, num_inference_steps=2, **kw)
+    runs = {m: dict(seconds=[], stage_ms=[], peak_gib=[]) for m in pipes}
+    images = {}
+    for _ in range(rounds):
+        for mode, p in pipes.items():
+            torch.cuda.reset_peak_memory_stats()
+            imgs, s, launches, by_route, mm = int8_counted(
+                lambda: p.generate(PROMPT, face, seed=1, return_float=True,
+                                   **kw))
+            expect_k1(f"headline {mode}", launches, by_route, 500)
+            want_mm = 0 if mode == "bf16" else 50 * n_layers
+            if mm != want_mm:
+                raise AssertionError(f"headline {mode}: {mm} int_mm "
+                                     f"launches, expected {want_mm}")
+            if not torch.isfinite(imgs.float()).all():
+                raise AssertionError(f"headline {mode}: non-finite images")
+            r = runs[mode]
+            r["seconds"].append(s)
+            r["stage_ms"].append({k: round(v, 1) for k, v in
+                                  p.last_stage_ms.items()})
+            r["peak_gib"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            r.update(k1_launches=launches[0], k1_by_route=by_route,
+                     int_mm_launches=mm,
+                     int_mm_per_unet_call=mm // 50)
+            images[mode] = to_uint8(imgs).cpu().numpy().astype(int)
+    for mode, r in runs.items():
+        r["mean_s"] = sum(r["seconds"]) / len(r["seconds"])
+        r["mean_abs_diff_vs_bf16"] = float(
+            np.abs(images[mode] - images["bf16"]).mean())
+        log(f"headline {mode} (batch 4, 50 DDIM steps, 512 px; {smi}): "
+            f"s/request {[round(x, 3) for x in r['seconds']]} (mean "
+            f"{r['mean_s']:.3f}, {r['mean_s'] / runs['bf16']['mean_s']:.3f}"
+            f"x bf16), stages ms {r['stage_ms'][-1]}, peak "
+            f"{max(r['peak_gib']):.2f} GiB, K1 {r['k1_launches']} "
+            f"{r['k1_by_route']}, int_mm {r['int_mm_launches']} "
+            f"({r['int_mm_per_unet_call']} per UNet call), mean |image - "
+            f"bf16's| {r['mean_abs_diff_vs_bf16']:.3f} grey levels")
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    x = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((8,), 501.0, device="cuda")
+    ctx = torch.randn((8, 81, 768), generator=gen, device="cuda")
+    profiles = {}
+    for mode in ("int8", "int8_static"):
+        unet = pipes[mode].bundle.infer_unet(1.0)
+        profiles[mode] = profile_call(lambda: unet(x, t, ctx), top=12)
+        log_profile(f"UNet call profile ({mode}, batch 8, 64x64 latents)",
+                    profiles[mode])
+    del unet
+
+    dyn = pipes["int8"]
+    dyn.generate(PROMPT, face, seed=0, num_inference_steps=4,
+                 cache_interval=3, **kw)
+    imgs, s, launches, by_route, mm = int8_counted(lambda: dyn.generate(
+        PROMPT, face, seed=1, cache_interval=3, return_float=True, **kw))
+    expect_k1("DeepCache int8 interval 3", launches, by_route, 335)
+    want_mm = 17 * n_layers + 33 * n_shallow
+    if mm != want_mm or not torch.isfinite(imgs.float()).all():
+        raise AssertionError(f"DeepCache int8: {mm} int_mm launches "
+                             f"(expected {want_mm}) or non-finite images")
+    drift = float(np.abs(to_uint8(imgs).cpu().numpy().astype(int)
+                         - images["int8"]).mean())
+    log(f"DeepCache interval 3 with int8 (batch 4, 50 DDIM steps, 512 px): "
+        f"{s:.3f} s, K1 {launches[0]} {by_route}, int_mm {mm} (17 x "
+        f"{n_layers} + 33 x {n_shallow}), mean drift against int8 at "
+        f"interval 1 {drift:.3f} grey levels")
+    return dict(
+        device=smi, int8_layers=n_layers, shallow_int8_layers=n_shallow,
+        calibration_s=calib_s, runs=runs, unet_profiles=profiles,
+        deepcache_int8=dict(seconds=s, k1_launches=launches[0],
+                            int_mm_launches=mm, mean_drift_vs_interval1=drift))
+
+
+def sdxl_int8_static(pipe, face, kw, reference):
+    """SDXL at 1024x1024, 50 DDIM steps, int8_static: calibrated on the
+    seeded face (8 steps, timed), one request: 3500 K1 launches, int_mm 50
+    per int8 layer, finite; seconds, stages, peak GiB and the mean uint8
+    difference from the bf16 request (`reference`)."""
+    import numpy as np
+    import torch
+    from consistentid_torch.utils.image import to_uint8
+
+    n_layers, _ = int8_layer_counts(pipe.bundle)
+    t0 = time.perf_counter()
+    static = pipe.calibrate_int8(PROMPT, face, **kw)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    static.generate(PROMPT, face, seed=0, num_inference_steps=2, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    images, s, launches, by_route, mm = int8_counted(lambda: static.generate(
+        PROMPT, face, seed=1, return_float=True, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_k1("SDXL int8_static", launches, by_route,
+              SDXL_K1_PER_UNET_CALL * 50)
+    if mm != 50 * n_layers or not torch.isfinite(images).all():
+        raise AssertionError(f"SDXL int8_static: {mm} int_mm launches "
+                             f"(expected {50 * n_layers}) or non-finite")
+    stages = {k: round(v, 1) for k, v in static.last_stage_ms.items()}
+    diff = float(np.abs(to_uint8(images).cpu().numpy().astype(int)
+                        - reference).mean())
+    log(f"SDXL int8_static (1 image, 1024x1024, 50 DDIM steps; calibrated "
+        f"in {calib_s:.3f} s): {s:.3f} s, stages ms {stages}, peak "
+        f"{peak:.2f} GiB, K1 {launches[0]} {by_route}, int_mm {mm} "
+        f"({n_layers} per UNet call), mean |image - bf16's| {diff:.3f}")
+    return dict(calibration_s=calib_s, seconds=s, stage_ms=stages,
+                peak_gib=peak, k1_launches=launches[0], int_mm_launches=mm,
+                int8_layers=n_layers, mean_abs_diff_vs_bf16=diff)
+
+
+def infer_int8_phase(paths, outdir):
+    """`apps.infer.main --quant int8_static --save-act-scales S` at the JAX
+    defaults (Euler, 50 steps, 768x512): it calibrates on the request
+    (8 steps, 80 K1 launches of its own) and writes S; a second call with
+    `--act-scales S` loads them instead: the same PNG bytes, K1 500."""
+    from consistentid_torch.apps import infer
+    from consistentid_torch.io.quant_scales import load_act_scales
+
+    scales = str(Path(outdir) / "act_scales.npz")
+    out = {}
+    pngs = []
+    for name, flags, k1 in (("calibrate", ["--save-act-scales", scales], 580),
+                            ("load", ["--act-scales", scales], 500)):
+        png = str(Path(outdir) / f"infer_int8_{name}.png")
+        pipe, s, launches, by_route, mm = int8_counted(lambda: infer.main(
+            infer_args(paths, outdir, "--quant", "int8_static", "--out",
+                       png, *flags)))
+        expect_k1(f"infer int8_static {name}", launches, by_route, k1)
+        if pipe.bundle.quant != "int8_static" or not mm:
+            raise AssertionError(f"infer int8_static {name}: quant "
+                                 f"{pipe.bundle.quant}, int_mm {mm}")
+        with open(png, "rb") as f:
+            pngs.append(f.read())
+        stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+        log(f"infer --quant int8_static {' '.join(flags[:1])} (Euler, 50 "
+            f"steps, 768x512): {s:.3f} s with the load, stages ms {stages}, "
+            f"K1 {launches[0]}, int_mm {mm}")
+        out[name] = dict(seconds=s, stage_ms=stages, k1_launches=launches[0],
+                         int_mm_launches=mm)
+        del pipe
+        gc.collect()
+    if pngs[0] != pngs[1]:
+        raise AssertionError("infer int8_static: --act-scales gave other PNG "
+                             "bytes than the calibrating call")
+    out["scales_in_file"] = len(load_act_scales(scales))
+    log(f"infer int8_static: the second call's PNG is the first's, byte for "
+        f"byte ({len(pngs[0])} bytes)")
+    return out
+
+
+def serve_int8_phase(paths, outdir):
+    """`apps.serve.main --quant int8_static --calib-image face.png` (512
+    px, 50 Euler steps, max batch 2) on 127.0.0.1: it calibrates, warms
+    buckets 1 and 2 and answers 2 concurrent requests 200 with (512, 512,
+    3) PNGs; 500 K1 launches and 50 int_mm launches per int8 layer per
+    batch. The server is shut down at the end."""
+    import base64
+    import json
+    import threading
+    import urllib.request
+    import numpy as np
+    from consistentid_torch.apps import serve as serve_app
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    held = {}
+    real_serve = serve_app.serve
+
+    def keep(*a, **kw):
+        held["server"], held["batcher"] = real_serve(*a, **kw)
+        held["pipe"] = a[0]
+        return held["server"], held["batcher"]
+
+    argv = infer_args(paths, outdir, "--quant", "int8_static",
+                      "--calib-image", str(Path(outdir) / "face.png"),
+                      "--height", "512", "--width", "512", "--max-batch",
+                      "2", "--port", "0")
+    serve_app.serve = keep
+    thread = threading.Thread(target=serve_app.main, args=(argv,),
+                              daemon=True)
+    t0 = time.perf_counter()
+    try:
+        thread.start()
+        while "server" not in held:      # loading and calibrating
+            if not thread.is_alive():
+                raise AssertionError("serve int8_static: the server exited")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("serve int8_static: no server within "
+                                     "600 s")
+            time.sleep(0.5)
+        url = f"http://127.0.0.1:{held['server'].server_address[1]}"
+        # answered once the warm-up is done and serve_forever runs
+        with urllib.request.urlopen(url + "/healthz", timeout=600) as r:
+            if r.status != 200:
+                raise AssertionError(f"serve int8_static: /healthz {r.status}")
+        ready_s = time.perf_counter() - t0
+        n_layers, _ = int8_layer_counts(held["pipe"].bundle)
+        face = face_inputs()[0]
+        bodies = [json.dumps({"prompt": PROMPT, "seed": 7 + i,
+                              "image_b64": base64.b64encode(encode_png(
+                                  face)).decode()}).encode()
+                  for i in range(2)]
+
+        def post(body):
+            req = urllib.request.Request(url + "/generate", data=body)
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+
+        def both():
+            with ThreadPoolExecutor(2) as pool:
+                return list(pool.map(post, bodies))
+
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            before = json.loads(r.read())
+        replies, s, launches, by_route, mm = int8_counted(both)
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            after = json.loads(r.read())
+        batches = after["batches"] - before["batches"]
+        for code, payload in replies:
+            img = decode_png(base64.b64decode(payload["image_b64"]))
+            if code != 200 or img.shape != (512, 512, 3):
+                raise AssertionError(f"serve int8_static: {code} {img.shape}")
+        if (held["pipe"].bundle.quant != "int8_static"
+                or launches[0] != 500 * batches
+                or mm != 50 * n_layers * batches):
+            raise AssertionError(
+                f"serve int8_static: quant {held['pipe'].bundle.quant}, K1 "
+                f"{launches[0]}, int_mm {mm} in {batches} batches")
+        log(f"serve --quant int8_static --calib-image (512 px, 50 Euler "
+            f"steps, max batch 2): up (load, calibration, warm-up) in "
+            f"{ready_s:.1f} s; 2 concurrent requests in {s:.3f} s, "
+            f"{batches} batch(es), K1 {launches[0]}, int_mm {mm}")
+        return dict(ready_s=ready_s, wall_s=s, batches=batches,
+                    k1_launches=launches[0], int_mm_launches=mm)
+    finally:
+        serve_app.serve = real_serve
+        if "server" in held:
+            held["server"].shutdown()
+        thread.join(timeout=120)
+        if thread.is_alive():
+            raise AssertionError("serve int8_static: the server thread did "
+                                 "not stop")
+
+
+# headline (SD1.5, batch 4 with CFG: 8 rows, 512 px) shapes of the micro-
+# table: NCHW convolution inputs with their kernel, token inputs with their
+# output width
+INT8_MICRO_SHAPES = (
+    ("L0 conv3x3", (8, 320, 64, 64), 320, 3),
+    ("L1 conv3x3", (8, 640, 32, 32), 640, 3),
+    ("L2 conv3x3", (8, 1280, 16, 16), 1280, 3),
+    ("L3 conv3x3", (8, 1280, 8, 8), 1280, 3),
+    ("L0 to_q", (8, 4096, 320), 320, None),
+    ("L0 GEGLU proj", (8, 4096, 320), 2560, None),
+    ("L0 GEGLU out", (8, 4096, 1280), 320, None),
+)
+INT8_TENSOR_OPS = 1979e12     # H100 SXM dense int8 tensor-core peak
+
+
+def int8_micro_table(smi: str):
+    """One int8 layer (Int8Conv / Int8Dense: quantize, im2col, int_mm,
+    dequant) dynamic and static, the int_mm GEMM alone, and the bf16
+    F.conv2d / F.linear on the same input, at the headline's shapes, each
+    timed by `cuda_ms` beside its bound (the larger of the bytes moved,
+    input read once and output written once, over 3.35 TB/s and 2MNK over
+    1979 int8 TOP/s or 989 bf16 TFLOP/s). int_mm is held against the
+    exact integer product on the same im2col matrix, bit for bit; the
+    int8 outputs against bf16's by relative L2 (quantization error,
+    recorded)."""
+    import torch
+    import torch.nn.functional as F
+    from consistentid_torch.models.layers import Int8Conv, Int8Dense
+    from consistentid_torch.ops import quant
+    from consistentid_torch.testing import rel_l2
+
+    gen = torch.Generator("cuda").manual_seed(21)
+    rows = []
+    for label, shape, cout, k in INT8_MICRO_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        cin = shape[1] if k else shape[-1]
+        wshape = (cout, cin, k, k) if k else (cout, cin)
+        w = (0.02 * torch.randn(wshape, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        b = (0.02 * torch.randn(cout, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        kq, ks = (quant.quantize_conv_kernel(w) if k
+                  else quant.quantize_dense_kernel(w))
+        layers = {}
+        for static in (False, True):
+            layer = (Int8Conv(cin, cout, k, 1, k // 2, static=static) if k
+                     else Int8Dense(cin, cout, static=static))
+            state = {"kernel_q": kq, "kernel_scale": ks, "bias": b}
+            if static:
+                state["act_scale"] = x.float().abs().amax() / 127
+            layer.load_state_dict(state, assign=True)
+            layers["static" if static else "dynamic"] = layer
+        if k:
+            xq, _ = quant.quantize_symmetric(x, (1, 2, 3), keepdim=True)
+            cols = quant.im2col_int8(xq, (k, k), 1, k // 2)[0]
+            wmat = quant.conv_weight_matrix(kq)
+
+            def bf16():
+                return F.conv2d(x, w, b, padding=k // 2)
+            m = cols.shape[0]
+            out_numel = shape[0] * cout * shape[2] * shape[3]
+        else:
+            xq, _ = quant.quantize_symmetric(x, (2,), keepdim=True)
+            cols = xq.reshape(-1, cin)
+            wmat = kq.t()
+
+            def bf16():
+                return F.linear(x, w, b)
+            m = cols.shape[0]
+            out_numel = m * cout
+        kdim = cols.shape[1]
+        with torch.no_grad():
+            exact = torch.equal(quant.int_mm(cols, wmat),
+                                quant.int_mm_plain(cols, wmat))
+            if not exact:
+                raise AssertionError(f"{label}: int_mm differs from the "
+                                     "exact integer product")
+            ref = bf16().float()
+            errs = {name: rel_l2(layer(x).float(), ref)
+                    for name, layer in layers.items()}
+            ms = {"bf16": cuda_ms(bf16, 20),
+                  "int_mm": cuda_ms(lambda: quant.int_mm(cols, wmat), 20)}
+            for name, layer in layers.items():
+                ms[name] = cuda_ms(lambda: layer(x), 20)
+        ops = 2.0 * m * kdim * cout
+        io = x.numel() * 2 + out_numel * 2
+        bound_bf16 = max((io + w.numel() * 2) / HBM_BYTES_PER_S,
+                         ops / TENSOR_FLOPS) * 1e3
+        bound_int8 = max((io + w.numel()) / HBM_BYTES_PER_S,
+                         ops / INT8_TENSOR_OPS) * 1e3
+        row = dict(shape=label, m=m, k=kdim, n=cout, ms=ms,
+                   bound_int8_ms=bound_int8, bound_bf16_ms=bound_bf16,
+                   rel_l2_vs_bf16=errs, int_mm_exact=exact)
+        rows.append(row)
+        log(f"int8 micro {label} (M {m}, K {kdim}, N {cout}; {smi}): bf16 "
+            f"{ms['bf16']:.4f} ms (bound {bound_bf16:.4f}), int8 dynamic "
+            f"{ms['dynamic']:.4f}, static {ms['static']:.4f}, int_mm alone "
+            f"{ms['int_mm']:.4f} (bound {bound_int8:.4f}); rel L2 against "
+            f"bf16 dynamic {errs['dynamic']:.4f}, static {errs['static']:.4f};"
+            f" int_mm exact {exact}")
+        if max(errs.values()) > 0.05:
+            raise AssertionError(f"{label}: int8 layer off bf16 by {errs}")
+    return rows
 
 
 def main() -> int:
@@ -3469,7 +3961,9 @@ def main() -> int:
     path = unet_path_check(bundle)
     profile = profile_unet(bundle)
     init_paths = init_image_phase(bundle)
-    deepcache = deepcache_phase(bundle)
+    deepcache = deepcache_phase(bundle, rounds=1)
+    int8 = int8_headline_phase(bundle, smi)
+    int8["micro_table"] = int8_micro_table(smi)
     hooks, perception = perception_phase()
     photo = photo_generate(bundle, *hooks)
     tmp = tempfile.mkdtemp(prefix="cid_checkpoints_")
@@ -3479,13 +3973,18 @@ def main() -> int:
         del hooks
         infer_pipe, inferred = infer_phase(paths, tmp)
         infer_variants = infer_variants_phase(paths, tmp)
+        int8["infer"] = infer_int8_phase(paths, tmp)
         samplers = samplers_phase(infer_pipe)
         served = serve_phase(infer_pipe)
         del infer_pipe
         gc.collect()  # the server's handler objects hold it in cycles
         torch.cuda.empty_cache()
+        int8["serve"] = serve_int8_phase(paths, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
         cli = train_cli_phase(paths, tmp)
         sdxl_bundle, sdxl = sdxl_path()
+        int8["sdxl_int8_static"] = sdxl.pop("int8_static")
         sdxl_infer = sdxl_infer_phase(sdxl_bundle, paths, tmp)
         sdxl_train = sdxl_training_path(sdxl_bundle)
         del sdxl_bundle
@@ -3633,6 +4132,7 @@ def main() -> int:
                         "main_path_launches": on_paths, "note": note})
     log(json.dumps({"main_path": main, "unet_path_check": path,
                     "init_image_paths": init_paths, "deepcache": deepcache,
+                    "int8": int8,
                     "infer_variants": infer_variants,
                     "perception": perception, "photo_generate": photo,
                     "dq_order": dq_order, "load": loaded, "infer": inferred,

@@ -20,8 +20,16 @@ apply). The face image is a PNG or a .npy uint8 array; outputs are PNGs.
 SD1.5 only); with `--mask-image` (white regenerates) it inpaints it; a
 `--strength` share of the schedule runs. `--cache-interval N` (text to
 image) runs the full UNet every N-th step and only its level-0 blocks in
-between (DeepCache). The JAX CLI's argument checks apply. The int8 flags
-exit with an error naming their ROADMAP item (A9).
+between (DeepCache). The JAX CLI's argument checks apply.
+
+`--quant int8` serves the W8A8 UNet with activation scales found on every
+call; `--quant int8_static` with calibrated per-tensor scales: the exact
+pipeline is loaded, then either `--act-scales` (a saved .npz, read before
+the load) or a calibration on the request's own prompt and face at
+`--lora-scale` (`pipe.calibrate_int8`) gives the scales, which
+`--save-act-scales` writes. The scale flags apply to int8_static only, and
+`--save-act-scales` only to a calibration (the JAX CLI ignores both
+silently).
 """
 from __future__ import annotations
 
@@ -80,13 +88,20 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
                    help="DeepCache: run the full UNet every N-th denoise "
                         "step, only its level-0 blocks in between (1 = "
                         "off; text to image only)")
-    # flags of a path not ported yet: kept so they fail loudly
     p.add_argument("--quant", choices=["none", "int8", "int8_static"],
-                   default="none", help="int8 UNet (not ported yet)")
+                   default="none",
+                   help="int8: the W8A8 UNet (int8 products, int32 sums; "
+                        "the same checkpoints, weights quantized per call, "
+                        "activations per call). int8_static: activation "
+                        "scales calibrated first on this prompt and face "
+                        "(or read from --act-scales), then fixed")
     p.add_argument("--act-scales", default=None,
-                   help="int8_static scales to load (not ported yet)")
+                   help="int8_static: read calibrated activation scales "
+                        "from this .npz (--save-act-scales) instead of "
+                        "calibrating at startup")
     p.add_argument("--save-act-scales", default=None,
-                   help="int8_static scales to save (not ported yet)")
+                   help="int8_static: write the startup calibration's "
+                        "activation scales to this .npz")
     p.add_argument("--sdxl", action="store_true",
                    help="SDXL base (reference infer_SDXL.py defaults: "
                         "864x1152, CFG 7.5; not applied, as in the JAX CLI)")
@@ -106,14 +121,10 @@ def build_parser(one_shot: bool = True) -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = (("act_scales", "--act-scales"),
-              ("save_act_scales", "--save-act-scales"))
-
-
 def check_args(parser: argparse.ArgumentParser,
                args: argparse.Namespace) -> None:
-    """Exit through parser.error on the JAX CLI's argument errors, and for
-    the int8 flags, whose path is not ported (ROADMAP A9)."""
+    """Exit through parser.error on the JAX CLI's argument errors, and on
+    scale flags that would do nothing (the JAX CLI ignores them)."""
     if args.mask_image and not args.init_image:
         parser.error("--mask-image requires --init-image")
     if args.init_image and args.sdxl:
@@ -129,15 +140,50 @@ def check_args(parser: argparse.ArgumentParser,
                      "only; the img2img/inpaint pipelines run the exact UNet")
     if args.cache_interval < 1:
         parser.error(f"--cache-interval must be >= 1: {args.cache_interval}")
-    for attr, flag in NOT_PORTED:
-        if getattr(args, attr):
-            parser.error(f"{flag} is not ported yet (ROADMAP A9)")
-    if args.quant != "none":
-        parser.error(f"--quant {args.quant} is not ported yet (ROADMAP A9)")
+    if args.init_image and args.quant == "int8_static":
+        parser.error("--quant int8_static calibrates/serves the t2i path "
+                     "only; use --quant int8 (dynamic) with --init-image")
+    for flag in ("act_scales", "save_act_scales"):
+        if getattr(args, flag) and args.quant != "int8_static":
+            parser.error(f"--{flag.replace('_', '-')} applies to --quant "
+                         "int8_static only")
+    if args.act_scales and args.save_act_scales:
+        parser.error("--save-act-scales writes a calibration's scales; "
+                     "with --act-scales nothing is calibrated")
+
+
+def read_act_scales(parser: argparse.ArgumentParser,
+                    args: argparse.Namespace):
+    """The --act-scales tree (None without the flag), read before anything
+    is loaded; a file that is not an act-scales artifact exits through
+    parser.error."""
+    if not args.act_scales:
+        return None
+    from ..io.quant_scales import load_act_scales
+    try:
+        return load_act_scales(args.act_scales)
+    except (OSError, ValueError) as e:
+        parser.error(f"--act-scales: {e}")
+
+
+def to_int8_static(pipe, act_scales, samples, save_path: Optional[str],
+                   **calibrate_kw):
+    """`pipe` at int8_static: with the given act_scales, else calibrated
+    over `samples` (pipe.calibrate_int8), the scales then written to
+    `save_path` if one is given."""
+    if act_scales is not None:
+        return pipe.with_quant("int8_static", act_scales=act_scales)
+    pipe = pipe.calibrate_int8(samples=samples, **calibrate_kw)
+    if save_path:
+        from ..io.quant_scales import save_act_scales
+        save_act_scales(save_path, pipe.bundle.act_scales)
+        print(f"saved act scales -> {save_path}")
+    return pipe
 
 
 def load_pipeline(args: argparse.Namespace):
-    """The pipeline the flags describe, from the checkpoint files."""
+    """The pipeline the flags describe, from the checkpoint files; under
+    int8_static the exact one, to be calibrated (`to_int8_static`)."""
     from ..conditioning import CLIPBPETokenizer
     from ..core.config import PipelineConfig
     from ..pipelines.loading import (load_sd15_consistentid,
@@ -153,7 +199,8 @@ def load_pipeline(args: argparse.Namespace):
               image_encoder_path=args.image_encoder,
               bisenet_path=args.bisenet, arcface_path=args.arcface,
               scrfd_path=args.scrfd, pipeline_config=config,
-              device=args.device)
+              device=args.device,
+              quant="none" if args.quant == "int8_static" else args.quant)
     if args.tokenizer:
         kw["tokenizer"] = CLIPBPETokenizer.from_pretrained(args.tokenizer)
     if args.sdxl:
@@ -195,11 +242,20 @@ def main(argv: Optional[List[str]] = None):
     parser = build_parser()
     args = parser.parse_args(argv)
     check_args(parser, args)
+    act_scales = read_act_scales(parser, args)
 
     from ..utils.png import read_array, read_image
 
     pipe = load_pipeline(args)
     face = read_image(args.image)
+    if args.quant == "int8_static":
+        # calibrated at the serving lora_scale: a fold at another scale
+        # shifts the activations against the calibrated clip points
+        pipe = to_int8_static(
+            pipe, act_scales,
+            [{"prompt": args.prompt, "face_image": face,
+              "negative_prompt": args.negative_prompt}],
+            args.save_act_scales, lora_scale=args.lora_scale)
     kw = dict(negative_prompt=args.negative_prompt, seed=args.seed,
               ip_scale=args.ip_scale, lora_scale=args.lora_scale)
     if args.mask_image:

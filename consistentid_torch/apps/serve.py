@@ -20,6 +20,10 @@ API:
     seed is per request: each request's latents come from its own seed.
     --cache-interval N serves every batch with DeepCache (the infer CLI's
     flag, carried by the pipeline's PipelineConfig as in the JAX server).
+    --quant int8 serves the W8A8 UNet; --quant int8_static calibrates its
+    activation scales at startup, before the warm-up, over every
+    --calib-image (max-merged) with --calib-prompt, or reads them from
+    --act-scales; --save-act-scales writes the calibration's.
 
     python -m consistentid_torch.apps.serve --base ... --port 8000
 """
@@ -256,11 +260,22 @@ def build_parser():
     p.add_argument("--max-image-px", type=int, default=MAX_IMAGE_PX)
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every batch bucket at startup")
+    p.add_argument("--calib-image", action="append", default=None,
+                   help="--quant int8_static: a representative face "
+                        "(.png or .npy) for the startup calibration of the "
+                        "activation scales; repeatable, the scales "
+                        "max-merged over all of them. Required for "
+                        "int8_static unless --act-scales is given")
+    p.add_argument("--calib-prompt",
+                   default="a photo of a person, portrait, high quality",
+                   help="--quant int8_static: the calibration prompt")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    from .infer import check_args, load_pipeline
+    from ..utils.png import read_image
+    from .infer import (check_args, load_pipeline, read_act_scales,
+                        to_int8_static)
 
     p = build_parser()
     args = p.parse_args(argv)
@@ -271,7 +286,26 @@ def main(argv: Optional[List[str]] = None) -> None:
         p.error("the server serves text to image only; --init-image and "
                 "--mask-image are the infer CLI's")
     check_args(p, args)
+    if args.quant == "int8_static" and not (args.calib_image
+                                            or args.act_scales):
+        p.error("--quant int8_static requires --calib-image (activation "
+                "scales are calibrated at startup) or --act-scales (a "
+                "saved calibration artifact)")
+    if args.calib_image and (args.quant != "int8_static"
+                             or args.act_scales):
+        p.error("--calib-image calibrates --quant int8_static when no "
+                "--act-scales is given")
+    act_scales = read_act_scales(p, args)
     pipe = load_pipeline(args)
+    if args.quant == "int8_static":
+        if act_scales is None:
+            print("calibrating int8 activation scales on "
+                  f"{', '.join(args.calib_image)}")
+        pipe = to_int8_static(
+            pipe, act_scales,
+            [(args.calib_prompt, read_image(im)) for im in
+             args.calib_image or ()],
+            args.save_act_scales)
     server, batcher = serve(pipe, args.port, args.max_batch, args.window_ms,
                             host=args.host, max_body=args.max_body,
                             max_image_px=args.max_image_px)

@@ -80,11 +80,11 @@ def fetch_mask_raw_image(raw_image: np.ndarray,
     to the image (bicubic, as PIL's default) when the parsing map has
     another size, then each pixel is image * mask / 255, rounded as PIL
     does."""
-    from ..utils.image import resize_uint8
+    from ..utils.image import resize_bicubic_uint8
 
     if mask.shape != raw_image.shape[:2]:
-        mask = resize_uint8(np.asarray(mask, np.uint8)[..., None],
-                            *raw_image.shape[:2])[..., 0]
+        mask = resize_bicubic_uint8(np.asarray(mask, np.uint8),
+                                    *raw_image.shape[:2])
     t = raw_image.astype(np.uint32) * np.asarray(mask, np.uint32)[..., None]
     t += 128
     return ((t + (t >> 8)) >> 8).astype(np.uint8)

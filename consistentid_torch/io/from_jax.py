@@ -8,6 +8,8 @@ state dict. Module names are the same on both sides; only the leaves
 change:
   - Dense kernel (in, out)      -> Linear weight (out, in)
   - Conv kernel HWIO            -> Conv2d weight OIHW
+  - int8 kernel_q, the same two transposes, keeping its name (the int8
+    UNet's Int8Dense/Int8Conv; kernel_scale and act_scale as they are)
   - norm scale, Embed embedding -> weight
   - PReLU alpha                 -> weight
   - everything else (bias, position/class embeddings, latents, the SCRFD
@@ -42,14 +44,14 @@ def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
             out.update(params_from_jax(val, f"{prefix}{key}."))
             continue
         a = np.asarray(val)
-        if key == "kernel":
+        if key in ("kernel", "kernel_q"):
             if a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 2:
                 a = a.T
             else:
                 raise ValueError(f"{prefix}{key}: kernel of rank {a.ndim}")
-            name = "weight"
+            name = "weight" if key == "kernel" else key
         elif key in ("scale", "embedding", "alpha"):
             name = "weight"
         else:

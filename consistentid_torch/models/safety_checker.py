@@ -79,13 +79,15 @@ def make_safety_checker(state: Mapping[str, torch.Tensor],
     model.load_state_dict(state, assign=True)
     model = model.to(device=device, dtype=torch.float32).eval()
     size = vision_config.image_size
+    mean, std = (torch.from_numpy(a).to(device) for a in (CLIP_MEAN, CLIP_STD))
 
     @torch.no_grad()
     def check(images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        batch = np.stack([
-            (resize_bicubic_uint8(img, size, size).astype(np.float32) / 255.0
-             - CLIP_MEAN) / CLIP_STD for img in images])
-        flags = model(torch.from_numpy(batch).to(device)).cpu().numpy()
+        # resized on the model's device: PIL's integer arithmetic, its bits
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        batch = torch.stack([resize_bicubic_uint8(img, size, size)
+                             for img in x])
+        flags = model((batch.float() / 255.0 - mean) / std).cpu().numpy()
         out = images.copy()
         out[flags] = 0
         return out, flags

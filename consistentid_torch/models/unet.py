@@ -47,8 +47,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.config import REMAT_POLICIES, UNetConfig
-from .layers import (GN_EPS, Downsample, ResnetBlock, TimestepEmbedding,
-                     Transformer2D, Upsample, timestep_embedding)
+from .layers import (GN_EPS, Downsample, Int8Conv, Int8Dense, ResnetBlock,
+                     TimestepEmbedding, Transformer2D, Upsample,
+                     timestep_embedding)
 
 UNET_LAYER_NAMES = ("down_0", "down_1", "down_2", "mid", "up_1", "up_2",
                     "up_3")
@@ -75,7 +76,15 @@ def _run_with(block: nn.Module, params: Dict[str, torch.Tensor], *args):
 
 
 class UNet(nn.Module):
-    def __init__(self, config: UNetConfig):
+    """`quant` (JAX `UNet.quant`): False for the float UNet; True or
+    "static" for the W8A8 serving twin (models/layers.py; dynamic or
+    calibrated activation scales), which takes a lora_rank=0 config and the
+    state `ops.quant.quantize_state_like` makes from the folded weights.
+    conv_in, conv_out, the time embeddings, the norms and the IP branch
+    stay float. Each int8 layer's `path` is its module path here, the key of
+    its calibration record and its act_scale."""
+
+    def __init__(self, config: UNetConfig, quant=False):
         super().__init__()
         self.remat = False
         self.remat_policy = "full"
@@ -90,7 +99,7 @@ class UNet(nn.Module):
                 boc[level], cfg.num_attention_heads[level],
                 cfg.cross_attention_dim, depth=depth, groups=groups,
                 lora_rank=cfg.lora_rank, ip_num_tokens=cfg.ip_num_tokens,
-                use_linear_projection=cfg.is_sdxl)
+                use_linear_projection=cfg.is_sdxl, quant=quant)
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], temb)
@@ -104,19 +113,21 @@ class UNet(nn.Module):
             out_ch = boc[level]
             for j in range(cfg.layers_per_block):
                 self.add_module(f"down_{level}_resnet_{j}",
-                                ResnetBlock(ch, out_ch, temb, groups))
+                                ResnetBlock(ch, out_ch, temb, groups, quant))
                 ch = out_ch
                 if cfg.down_block_has_attn[level]:
                     self.add_module(f"down_{level}_attn_{j}", transformer(
                         level, cfg.transformer_layers_per_block[level]))
                 skip_ch.append(ch)
             if level < n - 1:
-                self.add_module(f"down_{level}_downsample", Downsample(ch))
+                self.add_module(f"down_{level}_downsample",
+                                Downsample(ch, quant))
                 skip_ch.append(ch)
 
-        self.mid_resnet_0 = ResnetBlock(ch, boc[-1], temb, groups)
+        self.mid_resnet_0 = ResnetBlock(ch, boc[-1], temb, groups, quant)
         self.mid_attn = transformer(n - 1, cfg.mid_transformer_depth)
-        self.mid_resnet_1 = ResnetBlock(boc[-1], boc[-1], temb, groups)
+        self.mid_resnet_1 = ResnetBlock(boc[-1], boc[-1], temb, groups,
+                                        quant)
         ch = boc[-1]
 
         for i in range(n):
@@ -124,16 +135,20 @@ class UNet(nn.Module):
             out_ch = boc[level]
             for j in range(cfg.layers_per_block + 1):
                 self.add_module(f"up_{i}_resnet_{j}", ResnetBlock(
-                    ch + skip_ch.pop(), out_ch, temb, groups))
+                    ch + skip_ch.pop(), out_ch, temb, groups, quant))
                 ch = out_ch
                 if cfg.down_block_has_attn[level]:
                     self.add_module(f"up_{i}_attn_{j}", transformer(
                         level, cfg.transformer_layers_per_block[level]))
             if i < n - 1:
-                self.add_module(f"up_{i}_upsample", Upsample(ch))
+                self.add_module(f"up_{i}_upsample", Upsample(ch, quant))
 
         self.conv_norm_out = nn.GroupNorm(groups, boc[0], eps=GN_EPS)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
+        self.quant = quant
+        for name, module in self.named_modules():
+            if isinstance(module, (Int8Conv, Int8Dense)):
+                module.path = name
 
     def _block(self, block: nn.Module, *args):
         """block(*args), rematerialised when `remat` is on and autograd

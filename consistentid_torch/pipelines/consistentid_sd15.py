@@ -23,6 +23,7 @@ bundle's modules.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Callable, Dict, Optional, Sequence, Union
@@ -42,14 +43,38 @@ from ..core.config import (AdapterConfig, CLIPTextConfig, CLIPVisionConfig,
 from ..core.dtypes import resolve_device, resolve_dtype
 from ..models import (AutoencoderKL, CLIPTextEncoder, CLIPVisionEncoder, UNet,
                       fold_lora_params)
+from ..models.layers import calibration
+from ..ops.quant import (act_scales_from_calib, act_scales_to_numpy,
+                         merge_act_scales, quantize_state_like)
 from ..sampling import CondBranch, NoiseSchedule, denoise, make_plan
-from ..utils.image import center_crop_mask, clip_preprocess, to_uint8
+from ..utils.image import (center_crop_mask, clip_preprocess,
+                           resize_bicubic_uint8, to_uint8)
+from ..utils.png import as_rgb
 
 FACE_CAPTION_TEMPLATE = (
     "The person has one face, one nose, two eyes, two ears, and one mouth.")
 KEY_REGIONS = ("Face", "Left_Ear", "Right_Ear", "Left_Eye", "Right_Eye",
                "Nose", "Upper_Lip", "Lower_Lip")
 MAX_CAPTION_CHARS = 330
+# the bundle's quant modes -> the UNet's `quant` (JAX SD15Bundle)
+QUANT_MODES = {"none": False, "int8": True, "int8_static": "static"}
+# nn.Module's own containers (submodules, parameters, buffers, hooks):
+# what a shallow copy of a module must not share with its original
+_MODULE_REGISTRIES = tuple(k for k, v in vars(nn.Module()).items()
+                           if isinstance(v, (dict, set)))
+
+
+def check_quant(quant: str, act_scales) -> None:
+    """JAX SD15Bundle.__post_init__'s checks: a known mode, and calibrated
+    act_scales for int8_static."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {sorted(QUANT_MODES)}: "
+                         f"{quant}")
+    if quant == "int8_static" and act_scales is None:
+        raise ValueError(
+            "quant='int8_static' needs calibrated act_scales: run "
+            "pipeline.calibrate_int8() or load a saved artifact "
+            "(io.quant_scales.load_act_scales)")
 
 
 def select_key_regions(parsing_mask_list: Dict) -> Dict:
@@ -78,6 +103,13 @@ class SD15Bundle(nn.Module):
     in `dtype`, then initialised by `init_params`. Training keeps the
     trainable subset as fp32 masters (`training.create_train_state`);
     `call` runs a submodule in `dtype` either way.
+
+    `quant` (JAX `SD15Bundle.quant`): "none", "int8" (the W8A8 UNet with
+    dynamic activation scales) or "int8_static" (calibrated per-tensor
+    scales, `act_scales`, a {module: {"act_scale": scale}} tree). It
+    changes only the UNet the inference paths run (`infer_unet`); the
+    parameters stay float. `quantized` gives a twin at another mode that
+    shares them.
     """
 
     def __init__(self, unet_config: UNetConfig,
@@ -86,8 +118,12 @@ class SD15Bundle(nn.Module):
                  text_config: CLIPTextConfig = CLIPTextConfig(),
                  vision_config: CLIPVisionConfig = CLIPVisionConfig(),
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 quant: str = "none", act_scales: Optional[Dict] = None):
+        check_quant(quant, act_scales)
         super().__init__()
+        self.quant = quant
+        self.act_scales = act_scales
         device = resolve_device(device)
         self.unet_config = unet_config
         self.adapter_config = adapter_config
@@ -194,18 +230,50 @@ class SD15Bundle(nn.Module):
             return module(*args, **kwargs)
         return torch.func.functional_call(module, cast, args, kwargs)
 
+    def quantized(self, quant: str,
+                  act_scales: Optional[Dict] = None) -> "SD15Bundle":
+        """A twin of this bundle serving its UNet at `quant` (act_scales:
+        by default this bundle's). The submodules and tensors are shared;
+        the registries that hold them are the twin's own, so assigning a
+        submodule, parameter or buffer on either bundle leaves the other's
+        as it was."""
+        act_scales = act_scales if act_scales is not None \
+            else self.act_scales
+        check_quant(quant, act_scales)
+        twin = copy.copy(self)
+        for name in _MODULE_REGISTRIES:
+            twin.__dict__[name] = copy.copy(self.__dict__[name])
+        twin.quant = quant
+        twin.act_scales = act_scales
+        return twin
+
     def infer_unet(self, lora_scale: float) -> UNet:
         """The UNet the denoise loop runs: LoRA folded into the base
         projections once per call, so every step is LoRA-free, and every
         weight in the bundle's dtype. Unfolded tensors of that dtype are
-        shared with `self.unet`, not copied."""
-        if self.unet_config.lora_rank == 0 and all(
+        shared with `self.unet`, not copied. Under int8 the folded weights
+        are then quantized (JAX infer_unet), still once per call."""
+        if self.quant == "none" and self.unet_config.lora_rank == 0 and all(
                 p.dtype == self.dtype for p in self.unet.parameters()):
             return self.unet
+        return self._folded_unet(lora_scale, QUANT_MODES[self.quant])
+
+    def calibration_unet(self, lora_scale: float = 1.0) -> UNet:
+        """The dynamic int8 twin calibration runs (JAX calibration_unet):
+        the serving graph of quant="int8", its layers recording their
+        activation amax under `models.layers.calibration`."""
+        return self._folded_unet(lora_scale, True)
+
+    def _folded_unet(self, lora_scale: float, quant) -> UNet:
         folded = {k: v.to(self.dtype) for k, v in fold_lora_params(
             self.unet.state_dict(), lora_scale).items()}
         with torch.device("meta"):
-            unet = UNet(dataclasses.replace(self.unet_config, lora_rank=0))
+            unet = UNet(dataclasses.replace(self.unet_config, lora_rank=0),
+                        quant=quant)
+        if quant:
+            folded = quantize_state_like(
+                unet.state_dict(), folded,
+                self.act_scales if quant == "static" else None)
         unet.load_state_dict(folded, assign=True)
         return unet
 
@@ -235,9 +303,117 @@ class ConsistentIDPipeline:
         self.safety_checker = safety_checker
         self.last_nsfw_flags = None  # set per call when a checker is active
         # per-stage times of the last generate call, in ms: prepare (host
-        # work and the perception hooks), encode, denoise, decode (those
-        # three of _generate_core) and safety
+        # work and the perception hooks), encode, fold (the LoRA fold and,
+        # under int8, the weight quantization), denoise, decode (those four
+        # of _generate_core) and safety
         self.last_stage_ms: Dict[str, float] = {}
+
+    # ---------------- int8 ----------------
+
+    def with_quant(self, quant: str,
+                   act_scales: Optional[Dict] = None
+                   ) -> "ConsistentIDPipeline":
+        """The same pipeline serving its UNet at `quant` ("none", "int8",
+        "int8_static"; JAX with_quant): parameters, tokenizers and hooks
+        shared, the bundle a twin (`SD15Bundle.quantized`). "int8_static"
+        needs `act_scales` or a bundle calibrated before
+        (`calibrate_int8`). Works for every subclass."""
+        p = copy.copy(self)
+        p.bundle = self.bundle.quantized(quant, act_scales)
+        return p
+
+    def _calibration_batch(self, cond: Dict[str, torch.Tensor]):
+        """(contexts, added_cond) of every context the serving loop feeds
+        the UNet: the CFG null, the facial-augmented and the text-only
+        ones, concatenated (JAX `_calibration_batch`)."""
+        null_e, aug_e, text_e = self.encode_embeddings(cond)
+        return torch.cat([null_e, aug_e, text_e]), None
+
+    @torch.no_grad()
+    def calibrate_int8(self, prompt: Optional[str] = None,
+                       face_image: Optional[np.ndarray] = None,
+                       num_calib_steps: int = 8, seed: int = 0,
+                       margin: float = 1.1, negative_prompt: str = "",
+                       parsing_labels: Optional[np.ndarray] = None,
+                       faceid_embeds: Optional[np.ndarray] = None,
+                       height: Optional[int] = None,
+                       width: Optional[int] = None, lora_scale: float = 1.0,
+                       samples: Optional[Sequence] = None,
+                       noise: Optional[Sequence] = None
+                       ) -> "ConsistentIDPipeline":
+        """Max calibration (the JAX package's calibrate_int8) -> a pipeline
+        serving quant="int8_static" with the scales found.
+
+        The dynamic int8 twin (`calibration_unet`, LoRA folded at
+        `lora_scale`: calibrate at the scale generation will fold) runs
+        once per step on q-sample latents sqrt(a_t) x0 + sqrt(1 - a_t) eps
+        at `num_calib_steps` timesteps spread over the schedule
+        (linspace(0, T - 1, n), rounded), x0 the VAE encoding of the face
+        resized to the generation size (PIL's BICUBIC, bit for bit), with
+        the real contexts (`_calibration_batch`). Every int8 layer records
+        its activation amax; per step the records become scales (times
+        `margin`) and steps and samples are max-merged.
+
+        samples: (prompt, face) pairs or dicts with prompt, face_image and
+        optionally negative_prompt, parsing_labels, faceid_embeds, instead
+        of one (prompt, face_image). Every sample sees the same noise
+        sequence, from a generator seeded `seed` on the bundle's device, so
+        the merged tree is the elementwise max of the per-sample trees;
+        `noise` injects that sequence (num_calib_steps arrays of the
+        latents' shape (1, h, w, C)). Save the result with
+        io.quant_scales.save_act_scales(path, pipe.bundle.act_scales)."""
+        cfg = self.config
+        height = height or cfg.height
+        width = width or cfg.width
+        if samples is None:
+            if prompt is None or face_image is None:
+                raise ValueError(
+                    "calibrate_int8 needs (prompt, face_image) or samples=")
+            samples = [{"prompt": prompt, "face_image": face_image,
+                        "negative_prompt": negative_prompt,
+                        "parsing_labels": parsing_labels,
+                        "faceid_embeds": faceid_embeds}]
+        else:
+            samples = [s if isinstance(s, dict)
+                       else {"prompt": s[0], "face_image": s[1]}
+                       for s in samples]
+        if noise is not None and len(noise) != num_calib_steps:
+            raise ValueError(f"{len(noise)} noise arrays for "
+                             f"{num_calib_steps} calibration steps")
+        b = self.bundle
+        device = b.device
+        unet = b.calibration_unet(lora_scale)
+        n_train = len(self.schedule.alphas_cumprod)
+        ts = np.linspace(0, n_train - 1,
+                         num_calib_steps).round().astype(np.int64)
+        scales = None
+        for sample in samples:
+            gen = torch.Generator(device).manual_seed(seed)
+            cond = self.device_cond(self.prepare_conditioning(
+                sample["prompt"], sample["face_image"],
+                parsing_labels=sample.get("parsing_labels"),
+                faceid_embeds=sample.get("faceid_embeds"),
+                negative_prompt=sample.get("negative_prompt", "")))
+            ctx, added = self._calibration_batch(cond)
+            img = resize_bicubic_uint8(as_rgb(sample["face_image"]), height,
+                                       width)
+            pixels = torch.from_numpy(
+                img.astype(np.float32) / 127.5 - 1.0)[None].to(device)
+            x0 = b.vae.encode(pixels).float()
+            for i, t in enumerate(ts):
+                eps = (torch.randn(x0.shape, generator=gen, device=device)
+                       if noise is None else torch.from_numpy(
+                           np.array(noise[i], np.float32)).to(device))
+                tt = torch.full((ctx.shape[0],), int(t), device=device)
+                xt = self.schedule.add_noise(x0, eps, tt[:1])
+                with calibration(unet) as records:
+                    unet(xt.expand(ctx.shape[0], *xt.shape[1:]), tt, ctx,
+                         added_cond=added)
+                step = act_scales_from_calib(records, margin)
+                scales = (step if scales is None
+                          else merge_act_scales([scales, step]))
+        return self.with_quant("int8_static",
+                               act_scales=act_scales_to_numpy(scales))
 
     # ---------------- host-side prepare ----------------
 
@@ -430,8 +606,10 @@ class ConsistentIDPipeline:
             time_ids = rep(time_ids)
         clock.mark("encode")
         plan = make_plan(self.schedule, scheduler, num_steps)
-        unet_fn, unet_cached_fn = self._unet_fns(
-            self.bundle.infer_unet(lora_scale), ip_scale, cache_interval)
+        unet = self.bundle.infer_unet(lora_scale)
+        clock.mark("fold")
+        unet_fn, unet_cached_fn = self._unet_fns(unet, ip_scale,
+                                                 cache_interval)
         final = denoise(unet_fn, latents, text_b, facial_b, plan,
                         guidance_scale, start_merge_step,
                         generator=generator, noise=noise, time_ids=time_ids,

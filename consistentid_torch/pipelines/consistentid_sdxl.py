@@ -59,12 +59,14 @@ class SDXLBundle(SD15Bundle):
                  vision_config: CLIPVisionConfig = CLIPVisionConfig(),
                  text_config_2: Optional[CLIPTextConfig] = None,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 quant: str = "none", act_scales: Optional[Dict] = None):
         # read by _make_modules, inside SD15Bundle.__init__
         self.text_config_2 = text_config_2 or clip_text_bigg_config()
         super().__init__(unet_config, adapter_config, vae_config,
                          text_config, vision_config, dtype=dtype,
-                         device=device, seed=seed)
+                         device=device, seed=seed, quant=quant,
+                         act_scales=act_scales)
 
     def _make_modules(self) -> None:
         super()._make_modules()
@@ -165,6 +167,17 @@ class ConsistentIDXLPipeline(ConsistentIDPipeline):
     def _branches(self, cond: Dict[str, torch.Tensor]):
         text, facial = self.encode_embeddings_xl(cond)
         return text, facial, cond["time_ids"]
+
+    def _calibration_batch(self, cond: Dict[str, torch.Tensor]):
+        """SDXL's calibration batch (JAX `:152-162`): the facial null,
+        facial and text-only contexts with their pooled embeddings and the
+        time ids, the added conditioning every serving call feeds."""
+        text_b, facial_b = self.encode_embeddings_xl(cond)
+        ctx = torch.cat([facial_b.null, facial_b.context, text_b.context])
+        pooled = torch.cat([facial_b.pooled_null, facial_b.pooled,
+                            text_b.pooled])
+        time_ids = torch.cat([cond["time_ids"]] * 3)
+        return ctx, {"text_embeds": pooled, "time_ids": time_ids}
 
     def fp32_vae(self) -> AutoencoderKL:
         """The VAE in fp32: the bundle's own when it is fp32, else an fp32

@@ -15,7 +15,8 @@ StableDIffusionInpaint_ConsistentID.py:246-248):
 
 Randomness as in pipelines/inpaint.py: one generator seeded `seed` on the
 bundle's device draws the noise, then the posterior noise (strength < 1
-only), then any ancestral noise.
+only), then any ancestral noise. The bundle's quant mode reaches the UNet
+through `infer_unet` (JAX `img2img.py:64`).
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ class ConsistentIDImg2ImgPipeline(_InitImagePipeline):
             latents = _noised_init_latents(plan, image_latents, noise)
             plan = dataclasses.replace(plan, init_scale=1.0)
         clock.mark("encode")
-        unet_fn, _ = self._unet_fns(self.bundle.infer_unet(lora_scale),
-                                    ip_scale, 1)
+        unet = self.bundle.infer_unet(lora_scale)
+        clock.mark("fold")
+        unet_fn, _ = self._unet_fns(unet, ip_scale, 1)
         final = denoise(unet_fn, latents, text_b, facial_b, plan,
                         guidance_scale, start_merge_step,
                         generator=generator, noise=sampler_noise,

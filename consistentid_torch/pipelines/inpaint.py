@@ -24,6 +24,8 @@ all three.
 `generate` serves one image per call; `generate_async` runs the same path
 and returns a callable, so its bits are `generate`'s. The batch variants
 raise, as the inherited text-to-image ones would ignore the init image.
+The bundle's quant mode reaches the UNet through `infer_unet` (JAX
+`inpaint.py:101,247`); the ControlNet stays float, as in JAX.
 """
 from __future__ import annotations
 
@@ -222,8 +224,9 @@ class ConsistentIDInpaintPipeline(_InitImagePipeline):
         if not nine_channel:
             mask = cond["latent_mask"]
             targets = _inpaint_target_table(plan, image_latents, noise)
-        unet_fn = self._unet_fn(bundle.infer_unet(lora_scale), ip_scale,
-                                cond, masked_latents, plan)
+        unet = bundle.infer_unet(lora_scale)
+        clock.mark("fold")
+        unet_fn = self._unet_fn(unet, ip_scale, cond, masked_latents, plan)
         final = denoise(unet_fn, latents, text_b, facial_b, plan,
                         guidance_scale, start_merge_step,
                         generator=generator, noise=sampler_noise,

@@ -53,7 +53,8 @@ from ..models.bisenet import make_face_parser
 from ..models.safety_checker import SAFETY_VISION_CONFIG, make_safety_checker
 from ..models.scrfd import make_face_detector
 from ..training.train_step import warm_start_ip_projections
-from .consistentid_sd15 import ConsistentIDPipeline, SD15Bundle
+from .consistentid_sd15 import (ConsistentIDPipeline, SD15Bundle,
+                               check_quant)
 from .consistentid_sdxl import (ConsistentIDXLPipeline, SDXLBundle,
                                 sdxl_adapter_config)
 from .inpaint import ConsistentIDControlNetInpaintPipeline
@@ -194,6 +195,7 @@ def load_sd15_consistentid(
     bundle: Optional[SD15Bundle] = None,
     device: Union[str, torch.device] = "cuda",
     pipeline_cls: Optional[type] = None,
+    quant: str = "none",
 ) -> ConsistentIDPipeline:
     """The SD1.5 ConsistentID pipeline from local checkpoints, on `device`
     (the card unless the caller asks for the CPU).
@@ -206,19 +208,28 @@ def load_sd15_consistentid(
     pipeline_cls: the ConsistentIDPipeline subclass to assemble (img2img
     and inpainting read the same files, as the reference's Base mixin
     composes them). The ControlNet-inpaint pipeline is refused, as the JAX
-    loader refuses it: no file here holds a ControlNet."""
+    loader refuses it: no file here holds a ControlNet.
+    quant: "int8" serves the W8A8 UNet (the checkpoints stay float; the
+    folded weights are quantized per generate call); a given bundle keeps
+    its own mode unless quant names another. "int8_static" needs
+    calibrated scales, so it is refused here as in JAX: load "none", then
+    `pipe.calibrate_int8(...)` or `pipe.with_quant("int8_static",
+    act_scales=io.quant_scales.load_act_scales(path))`."""
     if pipeline_cls is not None and issubclass(
             pipeline_cls, ConsistentIDControlNetInpaintPipeline):
         raise ValueError(
             "load_sd15_consistentid does not load a ControlNet; construct "
             "ConsistentIDControlNetInpaintPipeline directly with one "
             "(pipelines/inpaint.py)")
+    check_quant(quant, None)
     if bundle is None:
         bundle = SD15Bundle(
             unet_config=sd15_unet_config(lora_rank=lora_rank,
                                          ip_num_tokens=num_tokens),
             adapter_config=AdapterConfig(num_id_tokens=num_tokens),
             dtype=resolve_dtype(dtype), device=resolve_device(device))
+    if quant != "none":
+        bundle = bundle.quantized(quant)
     device = bundle.device
     load_models(bundle, base_dir, consistentid_path, image_encoder_path)
 
@@ -263,6 +274,7 @@ def load_sdxl_consistentid(
     pipeline_config: Optional[PipelineConfig] = None,
     bundle: Optional[SDXLBundle] = None,
     device: Union[str, torch.device] = "cuda",
+    quant: str = "none",
 ) -> ConsistentIDXLPipeline:
     """The SDXL ConsistentID pipeline from local checkpoints, on `device`
     (the JAX package's load_sdxl_consistentid; reference
@@ -270,7 +282,9 @@ def load_sdxl_consistentid(
     text_encoder_2 and tokenizer_2 besides SD1.5's files, the VAE decoding
     in fp32 (force_upcast, scaling factor 0.13025), the face stack's
     detector at 512, no safety checker. bundle: as for
-    `load_sd15_consistentid` (e.g. `testing.tiny_sdxl_bundle`)."""
+    `load_sd15_consistentid` (e.g. `testing.tiny_sdxl_bundle`); quant: as
+    there."""
+    check_quant(quant, None)
     if bundle is None:
         bundle = SDXLBundle(
             unet_config=sdxl_unet_config(lora_rank=lora_rank,
@@ -278,6 +292,8 @@ def load_sdxl_consistentid(
             adapter_config=sdxl_adapter_config(num_id_tokens=num_tokens),
             vae_config=VAEConfig(scaling_factor=0.13025, force_upcast=True),
             dtype=resolve_dtype(dtype), device=resolve_device(device))
+    if quant != "none":
+        bundle = bundle.quantized(quant)
     load_models(bundle, base_dir, consistentid_path, image_encoder_path)
     face_parser, face_embedder = load_face_stack(
         bisenet_path, arcface_path, scrfd_path, det_size=512,

@@ -1,17 +1,19 @@
-"""Host-side image preprocessing on numpy arrays and CPU tensors.
+"""Image preprocessing on numpy arrays and tensors, on the host but for a
+resize of a tensor on the card.
 
 The JAX package does this with PIL (its utils/image.py and the perception
-models' makers). Here an image is an (H, W, 3) uint8 array and the resize is
-torch's antialiased bicubic or bilinear, which use PIL's filters (cubic
-coefficient a = -0.5) and support scaling; like PIL they resize one axis at
-a time and round to uint8 after each, so the two agree to one grey level
-but for rare values (two: one per pass; PIL's filters are fixed-point).
-Torch has no Lanczos mode: `resize_lanczos_uint8` is PIL's LANCZOS in
-numpy, its fixed-point arithmetic included.
+models' makers). Here an image is an (H, W, 3) uint8 array. The BICUBIC
+and LANCZOS resizes are PIL's fixed-point resample in torch integer ops,
+bit for bit on the CPU and on the card; NEAREST is PIL's in numpy. The
+BILINEAR one is torch's antialiased bilinear, which uses PIL's filter and
+supports scaling; like PIL it resizes one axis at a time and rounds to
+uint8 after each, so the two agree to one grey level but for rare values
+(two: one per pass; PIL's filters are fixed-point).
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -31,33 +33,20 @@ def _as_rgb_uint8(image) -> np.ndarray:
     return arr
 
 
-def resize_uint8(image: np.ndarray, height: int, width: int,
-                 mode: str = "bicubic") -> np.ndarray:
-    """(H, W, C) uint8 -> (height, width, C) uint8 with PIL's BICUBIC or
-    BILINEAR semantics: a horizontal then a vertical pass, each rounded to
-    uint8 (a pass at scale 1 is the identity, so each call resizes one
-    axis)."""
+def resize_bilinear_uint8(image: np.ndarray, height: int,
+                          width: int) -> np.ndarray:
+    """PIL BILINEAR resize of an (H, W, C) uint8 image: a horizontal then
+    a vertical pass of torch's antialiased bilinear, each rounded to uint8
+    (a pass at scale 1 is the identity, so each call resizes one axis); the
+    identity at the image's own size, as PIL's resize is."""
+    if image.shape[:2] == (height, width):
+        return np.array(image)
     x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
     x = x.float()
     for size in ((x.shape[2], width), (height, width)):
-        x = F.interpolate(x, size=size, mode=mode, align_corners=False,
+        x = F.interpolate(x, size=size, mode="bilinear", align_corners=False,
                           antialias=True).round().clamp(0, 255)
     return x[0].permute(1, 2, 0).to(torch.uint8).numpy()
-
-
-def resize_bicubic_uint8(image: np.ndarray, height: int,
-                         width: int) -> np.ndarray:
-    """PIL BICUBIC resize of an (H, W, C) uint8 image (`resize_uint8`)."""
-    return resize_uint8(image, height, width, "bicubic")
-
-
-def resize_bilinear_uint8(image: np.ndarray, height: int,
-                          width: int) -> np.ndarray:
-    """PIL BILINEAR resize of an (H, W, C) uint8 image (`resize_uint8`);
-    the identity at the image's own size, as PIL's resize is."""
-    if image.shape[:2] == (height, width):
-        return np.array(image)
-    return resize_uint8(image, height, width, "bilinear")
 
 
 # PIL's 8-bit resampling: coefficients in fixed point with 22 fraction bits
@@ -70,52 +59,91 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
                     0.0)
 
 
-def _lanczos_pass(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One PIL resampling pass of a uint8 array along `axis` (PIL's
-    precompute_coeffs and normalize_coeffs_8bpc): per output pixel the
-    filter widened by the scale when downsampling, its weights normalised
-    to sum 1, rounded to fixed point, the sum rounded half up and clipped
-    to uint8."""
-    in_size = x.shape[axis]
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's BICUBIC filter (a = -0.5) on [-2, 2]."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+# PIL's 8-bit filters with their support
+_PIL_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _pil_coeffs(in_size: int, out_size: int,
+                kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's precompute_coeffs and normalize_coeffs_8bpc for one axis with
+    its LANCZOS or BICUBIC filter: per output pixel the filter widened by
+    the scale when downsampling, its weights summed in order and normalised
+    to sum 1, then rounded to fixed point. Returns the (out_size, ksize)
+    source indices (clamped where the window is shorter; their weights are
+    0) and int32 weights."""
+    filt, filter_support = _PIL_FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
-    idx = np.zeros((out_size, ksize), np.int64)
-    fixed = np.zeros((out_size, ksize), np.int64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        n = min(int(center + support + 0.5), in_size) - xmin
-        w = _lanczos((np.arange(n) + xmin - center + 0.5)
-                     * (1.0 / filterscale))
-        total = w.sum()
-        if total != 0.0:
-            w = w / total
-        w = w * (1 << _PRECISION_BITS)
-        fixed[xx, :n] = np.where(w < 0, np.trunc(w - 0.5), np.trunc(w + 0.5))
-        idx[xx, :n] = np.arange(xmin, xmin + n)
-    src = np.moveaxis(x, axis, 0).astype(np.int64)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
-                  np.int64)
-    extra = (slice(None),) + (None,) * (src.ndim - 1)
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    n = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)
+    w = np.where(x < n[:, None], filt((x + xmin[:, None] - center[:, None]
+                                       + 0.5) * (1.0 / filterscale)), 0.0)
+    total = np.zeros(out_size)
     for k in range(ksize):
-        acc += fixed[:, k][extra] * src[idx[:, k]]
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+        total = total + w[:, k]
+    w = np.divide(w, total[:, None], out=w, where=total[:, None] != 0.0)
+    w = w * (1 << _PRECISION_BITS)
+    fixed = np.where(w < 0, np.trunc(w - 0.5), np.trunc(w + 0.5))
+    return np.minimum(x + xmin[:, None], in_size - 1), fixed.astype(np.int32)
+
+
+def _pil_pass(x: torch.Tensor, out_size: int, dim: int,
+              kind: str) -> torch.Tensor:
+    """One PIL resampling pass of a uint8 tensor along `dim`, on its
+    device (`_pil_coeffs`): int32 sums, as PIL's, from half a unit,
+    shifted down and clipped to uint8; integer arithmetic, so every device
+    gives PIL's bits."""
+    idx, fixed = (torch.from_numpy(a).to(x.device)
+                  for a in _pil_coeffs(x.shape[dim], out_size, kind))
+    moved = x.movedim(dim, 0)
+    src = moved.reshape(len(moved), -1).to(torch.int32)
+    acc = torch.full((out_size, src.shape[1]), 1 << (_PRECISION_BITS - 1),
+                     dtype=torch.int32, device=x.device)
+    term = torch.empty_like(acc)
+    for k in range(idx.shape[1]):
+        torch.index_select(src, 0, idx[:, k], out=term)
+        acc += term.mul_(fixed[:, k, None])
+    out = (acc >> _PRECISION_BITS).clamp_(0, 255).to(torch.uint8)
+    return out.reshape((out_size,) + moved.shape[1:]).movedim(0, dim)
+
+
+def _resize_pil(image, height: int, width: int, kind: str):
+    """A horizontal `_pil_pass` then a vertical one, each only where that
+    axis changes size and each rounded to uint8, as PIL's resample does.
+    A numpy image is resized on the CPU and returned as numpy; a tensor on
+    its device."""
+    host = not isinstance(image, torch.Tensor)
+    out = (torch.from_numpy(np.ascontiguousarray(image, np.uint8)) if host
+           else image)
+    if out.shape[1] != width:
+        out = _pil_pass(out, width, dim=1, kind=kind)
+    if out.shape[0] != height:
+        out = _pil_pass(out, height, dim=0, kind=kind)
+    return out.numpy().copy() if host else out.clone()
 
 
 def resize_lanczos_uint8(image: np.ndarray, height: int,
                          width: int) -> np.ndarray:
-    """PIL LANCZOS resize of an (H, W[, C]) uint8 image: a horizontal pass
-    then a vertical one, each only where that axis changes size and each
-    rounded to uint8, as PIL's resample does."""
-    out = np.asarray(image, np.uint8)
-    if out.shape[1] != width:
-        out = _lanczos_pass(out, width, axis=1)
-    if out.shape[0] != height:
-        out = _lanczos_pass(out, height, axis=0)
-    return np.array(out)
+    """PIL LANCZOS resize of an (H, W[, C]) uint8 image, bit for bit."""
+    return _resize_pil(image, height, width, "lanczos")
+
+
+def resize_bicubic_uint8(image, height: int, width: int):
+    """PIL BICUBIC resize of an (H, W[, C]) uint8 image, bit for bit: a
+    numpy array on the CPU, or a tensor on its device."""
+    return _resize_pil(image, height, width, "bicubic")
 
 
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:

@@ -78,21 +78,69 @@ def test_infer_cli_reads_npy_face(synth, tmp_path):
      "--strength must be in (0, 1]"),
     (["--init-image", "x.png", "--num-images", "2"],
      "--num-images > 1 is text-to-image only"),
-    (["--quant", "int8"], "not ported yet (ROADMAP A9)"),
-    (["--quant", "int8_static"], "not ported yet (ROADMAP A9)"),
-    (["--act-scales", "s.npz"], "not ported yet (ROADMAP A9)"),
-    (["--save-act-scales", "s.npz"], "not ported yet (ROADMAP A9)"),
+    (["--init-image", "x.png", "--quant", "int8_static"],
+     "calibrates/serves the t2i path only"),
+    (["--quant", "int8_static", "--act-scales", "FOREIGN"],
+     "is not an act-scales artifact"),
+    (["--quant", "int8", "--act-scales", "s.npz"],
+     "--act-scales applies to --quant int8_static only"),
+    (["--quant", "int8_static", "--act-scales", "s.npz",
+      "--save-act-scales", "t.npz"], "with --act-scales nothing is"),
     (["--init-image", "x.png", "--cache-interval", "2"],
      "--cache-interval applies to the text-to-image path only")])
-def test_unported_flags_exit_with_not_ported_yet(flags, reason, capsys):
+def test_unported_flags_exit_with_not_ported_yet(flags, reason, capsys,
+                                                 tmp_path):
     """The JAX CLI's argument errors (mask without init, strength out of
-    (0, 1], several images or DeepCache from an init image) and the int8
-    flags, whose path is not ported: exit 2 with the reason."""
+    (0, 1], several images, DeepCache or int8_static from an init image),
+    an --act-scales file without the artifact's marker (FOREIGN: a plain
+    .npz), and scale flags that would do nothing, which the JAX CLI
+    ignores: exit 2 with the reason, before anything is loaded."""
+    foreign = str(tmp_path / "foreign.npz")
+    np.savez(foreign, w=np.ones(3, np.float32))
+    flags = [foreign if f == "FOREIGN" else f for f in flags]
     with pytest.raises(SystemExit) as exc:
         infer.main(["--base", "b", "--image", "f.png", "--prompt", "p",
                     *flags])
     assert exc.value.code == 2
     assert reason in capsys.readouterr().err
+
+
+def test_infer_cli_runs_int8(synth, tmp_path):
+    """--quant int8 loads the pipeline with the W8A8 UNet and writes an
+    image."""
+    face = tmp_path / "face.png"
+    Image.fromarray(_face()).save(face)
+    out = str(tmp_path / "int8.png")
+    pipe = infer.main(_args(synth, "--image", str(face), "--prompt",
+                            "a woman", "--out", out, "--quant", "int8",
+                            "--no-safety-checker"))
+    assert pipe.bundle.quant == "int8"
+    assert read_image(out).shape == (64, 48, 3)
+
+
+def test_infer_cli_saves_and_reuses_act_scales(synth, tmp_path):
+    """--quant int8_static calibrates on the request's prompt and face and
+    --save-act-scales writes the scales (the JAX package reads the file);
+    a second run given them with --act-scales serves the same PNG bytes
+    without calibrating."""
+    from consistentid_tpu.io.quant_scales import load_act_scales
+    face = tmp_path / "face.png"
+    Image.fromarray(_face()).save(face)
+    scales = str(tmp_path / "scales.npz")
+    pngs = []
+    for i, flags in enumerate((["--save-act-scales", scales],
+                               ["--act-scales", scales])):
+        out = str(tmp_path / f"static_{i}.png")
+        pipe = infer.main(_args(synth, "--image", str(face), "--prompt",
+                                "a man", "--out", out, "--quant",
+                                "int8_static", "--no-safety-checker",
+                                *flags))
+        assert pipe.bundle.quant == "int8_static"
+        with open(out, "rb") as f:
+            pngs.append(f.read())
+    assert pngs[0] == pngs[1]
+    tree = load_act_scales(scales)
+    assert tree["down_0_resnet_0"]["conv1"]["act_scale"] > 0
 
 
 @pytest.mark.parametrize("mode", ["img2img", "inpaint"])
@@ -142,17 +190,60 @@ def test_loader_refuses_the_controlnet_pipeline():
             device="cpu")
 
 
-def test_serve_parser_defines_each_flag_once():
+def test_serve_parser_defines_each_flag_once(capsys):
     """The JAX serve adds --act-scales and --save-act-scales a second time
     over infer's parser (argparse raises); the port's adds none of
-    infer's flags again, and its requests bring --image and --prompt."""
+    infer's flags again, and its requests bring --image and --prompt.
+    int8_static without --calib-image or --act-scales exits through the
+    parser's error, as the JAX server means to."""
     p = serve.build_parser()
     flags = [s for a in p._actions for s in a.option_strings]
     assert len(flags) == len(set(flags))
     args = p.parse_args(["--base", "b", "--port", "0", "--max-batch", "2"])
     assert args.port == 0 and args.max_batch == 2 and args.image is None
-    with pytest.raises(SystemExit):
+    assert args.calib_image is None and args.act_scales is None
+    with pytest.raises(SystemExit) as exc:
         serve.main(["--base", "b", "--quant", "int8_static"])
+    assert exc.value.code == 2
+    assert "requires --calib-image" in capsys.readouterr().err
+
+
+def test_serve_cli_calibrates_int8_static(synth, tmp_path, monkeypatch):
+    """serve --quant int8_static --calib-image A --calib-image B calibrates
+    over both faces (max-merged) before serving and --save-act-scales
+    writes the scales; the served pipeline is static int8 (serve_forever
+    returns at once here)."""
+    from consistentid_torch.ops.quant import merge_act_scales
+    faces = []
+    for i in range(2):
+        faces.append(str(tmp_path / f"calib{i}.png"))
+        Image.fromarray(_face(i + 3)).save(faces[-1])
+    scales = str(tmp_path / "served.npz")
+    served = {}
+    real_serve = serve.serve
+
+    def spy(pipe, *a, **kw):
+        served["pipe"] = pipe
+        return real_serve(pipe, *a, **kw)
+
+    monkeypatch.setattr(serve, "serve", spy)
+    monkeypatch.setattr(serve.ThreadingHTTPServer, "serve_forever",
+                        lambda self: None)
+    serve.main(_args(synth, "--quant", "int8_static", "--calib-image",
+                     faces[0], "--calib-image", faces[1], "--calib-prompt",
+                     "a face", "--save-act-scales", scales, "--no-warmup",
+                     "--port", "0", "--no-safety-checker"))
+    pipe = served["pipe"]
+    assert pipe.bundle.quant == "int8_static"
+    singles = [pipe.calibrate_int8(samples=[("a face", read_image(f))])
+               .bundle.act_scales for f in faces]
+    merged = merge_act_scales(singles)
+    got = pipe.bundle.act_scales
+    for key in ("down_0_resnet_0", "mid_resnet_1"):
+        for conv in ("conv1", "conv2"):
+            assert float(got[key][conv]["act_scale"]) == float(
+                merged[key][conv]["act_scale"])
+    assert os.path.getsize(scales) > 0
 
 
 def test_serve_parser_takes_cache_interval(capsys):

@@ -7,7 +7,11 @@ versions; what the wrappers refuse; two perception networks on the card
 against the CPU; the fused backward's bits over repeated calls; the
 pipeline's async batch; the tiny SDXL generate on the card against the
 CPU; the tiny img2img, inpaint (4- and 9-channel), ControlNet-inpaint and
-DeepCache cores on the card against the CPU. Needs an NVIDIA GPU and
+DeepCache cores on the card against the CPU; the int8 products
+(torch._int_mm against the exact integer product, bit for bit, at the int8
+UNet's shapes and at m <= 16), the int8 layers and the tiny int8 UNet on
+the card against the CPU; PIL's resample on the card against the CPU.
+Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -752,3 +756,180 @@ def test_perception_forward_card_vs_cpu(cuda_generator, name):
     for g, w in zip(got if name == "bisenet" else [got],
                     want if name == "bisenet" else [want]):
         assert rel_l2(g.cpu(), w) <= PERCEPTION_REL_L2
+
+
+# ------------------------------------------------------------------ int8
+
+# (M, K, N) of the int8 UNet's products at the headline request (SD1.5,
+# batch 4 with CFG: 8 rows, 512 px): level-0 and level-1 3x3 convolutions,
+# the stride-2 downsampling, a 1x1 shortcut, the 3x3 over 1280 channels,
+# to_q and the GEGLU projection at level 0, to_k over the 81-token context;
+# then m at and under cuBLASLt's limit of 17 (padded with zero rows)
+INT_MM_SHAPES = [(32768, 2880, 320), (8192, 5760, 640), (8192, 2880, 320),
+                 (8192, 320, 640), (512, 11520, 1280), (32768, 320, 320),
+                 (32768, 320, 2560), (648, 768, 320), (17, 768, 320),
+                 (16, 768, 320), (1, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", INT_MM_SHAPES)
+def test_int_mm_matches_plain_integer_product(cuda_generator, m, k, n):
+    """torch._int_mm through `int_mm` against the exact integer product,
+    bit for bit, random codes and all-extreme ones (+-127)."""
+    from consistentid_torch.ops import quant
+
+    g = cuda_generator
+    for extreme in (False, True):
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                          dtype=torch.int8)
+        if extreme:
+            a, w = torch.where(a >= 0, 127, -127).to(torch.int8), \
+                torch.where(w >= 0, 127, -127).to(torch.int8)
+        before = quant.int_mm.launches
+        got = quant.int_mm(a, w.t())
+        assert quant.int_mm.launches == before + 1
+        want = quant.int_mm_plain(a, w.t())
+        assert got.dtype == torch.int32 and got.shape == (m, n)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int_mm_refuses_what_cublaslt_does_not_take(cuda_generator):
+    """k or n not a multiple of 8: a ValueError naming the layer, never a
+    float product."""
+    from consistentid_torch.ops import quant
+
+    a = torch.ones((32, 12), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="up_0_resnet_0.conv1"):
+        quant.int_mm(a, torch.ones((12, 16), dtype=torch.int8,
+                                   device="cuda"), "up_0_resnet_0.conv1")
+    with pytest.raises(ValueError, match="n=12"):
+        quant.int_mm(torch.ones((32, 16), dtype=torch.int8, device="cuda"),
+                     torch.ones((16, 12), dtype=torch.int8, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("kind", ["conv3x3", "stride2", "conv1x1", "dense"])
+def test_int8_layer_card_vs_cpu(cuda_generator, kind, static):
+    """Int8Conv / Int8Dense on the card against the CPU, fp32: the codes,
+    the integer products and the epilogue are the same arithmetic, so
+    rtol 1e-6 (one layer on the same input)."""
+    from consistentid_torch.models.layers import Int8Conv, Int8Dense
+    from consistentid_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(3)
+    if kind == "dense":
+        layer = Int8Dense(320, 640, static=static)
+        x = torch.randn((2, 77, 320), generator=gen)
+        w = torch.randn((640, 320), generator=gen)
+        kq, ks = quant.quantize_dense_kernel(w)
+    else:
+        k, stride, pad = {"conv3x3": (3, 1, 1), "stride2": (3, 2, 1),
+                          "conv1x1": (1, 1, 0)}[kind]
+        layer = Int8Conv(320, 640, k, stride, pad, static=static)
+        x = torch.randn((2, 320, 17, 19), generator=gen)
+        kq, ks = quant.quantize_conv_kernel(
+            torch.randn((640, 320, k, k), generator=gen))
+    state = {"kernel_q": kq, "kernel_scale": ks,
+             "bias": 0.1 * torch.randn(640, generator=gen)}
+    if static:
+        state["act_scale"] = x.abs().amax() * 0.8 / 127
+    layer.load_state_dict(state)
+    want = layer(x)
+    got = layer.cuda()(x.cuda())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", ["int8", "int8_static"])
+def test_tiny_int8_unet_card_vs_cpu(cuda_generator, quant_mode,
+                                    monkeypatch):
+    """The tiny folded int8 UNet on the card against the CPU, fp32 with
+    TF32 off, the CPU run's activation codes replayed on the card (a
+    last-bit difference of a float layer flips codes at .5 boundaries,
+    which the next layers spread; the CPU parity tests do the same against
+    JAX): the card's own codes within one of the CPU's at fewer than 1 in
+    1000 places, the outputs within 1e-5 relative L2."""
+    from consistentid_torch.models import layers
+    from consistentid_torch.ops import quant
+    from consistentid_torch.testing import tiny_bundle
+
+    bundle = tiny_bundle(device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((3, 16, 16, 4), generator=gen)
+    t = torch.tensor([900.0, 500.0, 20.0])
+    ctx = torch.randn((3, 81, 64), generator=gen)
+    scales = None
+    if quant_mode == "int8_static":
+        unet = bundle.calibration_unet(0.8)
+        with layers.calibration(unet) as records, torch.no_grad():
+            unet(x, t, ctx)
+        scales = quant.act_scales_to_numpy(
+            quant.act_scales_from_calib(records, 1.1))
+    codes, counts = [], {"calls": 0, "flips": 0, "total": 0, "max": 0}
+    sym, fixed = layers.quantize_symmetric, layers.quantize_with_scale
+
+    def record_sym(x, dims, keepdim=False):
+        q, s = sym(x, dims, keepdim)
+        codes.append(q)
+        return q, s
+
+    def record_fixed(x, s):
+        codes.append(fixed(x, s))
+        return codes[-1]
+
+    def replay(q):
+        want = codes.pop(0).to(q.device)
+        diff = (want.int() - q.int()).abs()
+        counts["calls"] += 1
+        counts["flips"] += int((diff > 0).sum())
+        counts["total"] += diff.numel()
+        counts["max"] = max(counts["max"], int(diff.max()))
+        return want
+
+    with tf32_off(), torch.no_grad():
+        with monkeypatch.context() as mp:
+            mp.setattr(layers, "quantize_symmetric", record_sym)
+            mp.setattr(layers, "quantize_with_scale", record_fixed)
+            want = bundle.quantized(quant_mode, scales).infer_unet(0.8)(
+                x, t, ctx)
+        card = bundle.to("cuda")
+        with monkeypatch.context() as mp:
+            mp.setattr(layers, "quantize_symmetric",
+                       lambda x, d, keepdim=False: (
+                           lambda q, s: (replay(q), s))(*sym(x, d, keepdim)))
+            mp.setattr(layers, "quantize_with_scale",
+                       lambda x, s: replay(fixed(x, s)))
+            before = quant.int_mm.launches
+            got = card.quantized(quant_mode, scales).infer_unet(0.8)(
+                x.cuda(), t.cuda(), ctx.cuda())
+            launched = quant.int_mm.launches - before
+    assert not codes and launched == counts["calls"] > 0
+    assert counts["max"] <= 1 and counts["flips"] <= 1e-3 * counts["total"]
+    assert rel_l2(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bicubic", "lanczos"])
+def test_pil_resize_card_vs_cpu(cuda_generator, kind):
+    """The PIL resample on a card tensor (the safety checker's route) gives
+    the CPU's bits (held to PIL's in tests/test_torch_quant.py and
+    test_torch_train_data.py): down by more than 4, up, one axis, a grey
+    image."""
+    import numpy as np
+
+    from consistentid_torch.utils import image as port_image
+    rng = np.random.RandomState(0)
+    for shape, (h, w) in (((512, 512, 3), (224, 224)),
+                          ((72, 80, 3), (1024, 1024)),
+                          ((300, 200, 3), (300, 77)),
+                          ((37, 53), (512, 512))):
+        img = rng.randint(0, 256, shape, np.uint8)
+        want = port_image._resize_pil(img, h, w, kind)
+        got = port_image._resize_pil(torch.from_numpy(img).cuda(), h, w,
+                                     kind)
+        assert got.device.type == "cuda" and got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -81,10 +81,8 @@ def _bundle_params(jbundle):
 
 
 def test_prepare_conditioning(pipes):
-    """Token ids, trigger indices and region masks exact; CLIP pixels within
-    one grey level (torch's antialiased bicubic vs PIL's fixed-point one,
-    both rounded to uint8 after each axis) over the smallest CLIP std:
-    1 / 255 / 0.2613 < 0.016."""
+    """Token ids, trigger indices, region masks and CLIP pixels exact (the
+    port's bicubic resize is PIL's fixed-point one in numpy)."""
     jpipe, _, ppipe, jcond = pipes
     face, labels, faceid = face_inputs()
     pcond = ppipe.prepare_conditioning(PROMPT, face, parsing_labels=labels,
@@ -96,8 +94,7 @@ def test_prepare_conditioning(pipes):
     assert jcond["facial_idx_mask"].sum() == 4
     for key in ("face_pixels", "region_pixels"):
         assert pcond[key].shape == jcond[key].shape
-        np.testing.assert_allclose(pcond[key], jcond[key], rtol=0, atol=0.016,
-                                   err_msg=key)
+        np.testing.assert_array_equal(pcond[key], jcond[key], err_msg=key)
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +180,7 @@ def test_host_steps_match_jax():
     """The port's numpy/scipy/torch host steps against the JAX package's
     PIL/cv2 ones: filled region masks exact (holes, a nested component and
     diagonal contact included), center-cropped masks and uint8
-    postprocessing exact, CLIP pixels within one grey level (< 0.016)."""
+    postprocessing exact, CLIP pixels exact."""
     from consistentid_tpu.conditioning import masks as jax_masks
     from consistentid_tpu.utils import image as jax_image
     from consistentid_torch.conditioning import masks as port_masks
@@ -211,10 +208,9 @@ def test_host_steps_match_jax():
     rng = np.random.RandomState(1)
     for shape in ((300, 200, 3), (50, 80, 3)):
         img = rng.randint(0, 255, shape, np.uint8)
-        np.testing.assert_allclose(
+        np.testing.assert_array_equal(
             port_image.clip_preprocess(img, 224),
-            jax_image.clip_preprocess(Image.fromarray(img), 224),
-            rtol=0, atol=0.016)
+            jax_image.clip_preprocess(Image.fromarray(img), 224))
     images = rng.uniform(-1.2, 1.2, (2, 8, 8, 3)).astype(np.float32)
     np.testing.assert_array_equal(
         port_image.postprocess_to_uint8(torch.from_numpy(images)),
@@ -228,8 +224,7 @@ def test_prepare_conditioning_through_hooks(pipes, monkeypatch):
     JAX package's make_face_parser and make_face_embedder on the same
     weights, each pipeline calling its own. The same prepared arrays reach
     both networks, so the label maps agree exactly: ids, indices and masks
-    exact, the embedding within 1e-5 (fp32 towers), pixels within one grey
-    level (0.016). Without labels or a parser the port raises; a safety
+    exact, the embedding within 1e-5 (fp32 towers), pixels exact. Without labels or a parser the port raises; a safety
     checker's flags land in last_nsfw_flags."""
     from consistentid_tpu.models import arcface as jax_arcface
     from consistentid_tpu.models import bisenet as jax_bisenet
@@ -271,8 +266,7 @@ def test_prepare_conditioning_through_hooks(pipes, monkeypatch):
                                rtol=0, atol=1e-5)
     assert np.linalg.norm(pcond["faceid_embeds"]) == pytest.approx(1, 1e-5)
     for key in ("face_pixels", "region_pixels"):
-        np.testing.assert_allclose(pcond[key], jcond[key], rtol=0, atol=0.016,
-                                   err_msg=key)
+        np.testing.assert_array_equal(pcond[key], jcond[key], err_msg=key)
 
     with pytest.raises(ValueError):
         ppipe.prepare_conditioning(PROMPT, face)

@@ -171,8 +171,8 @@ def pipes():
 def test_generate_batch_stacks_conditioning_like_jax(pipes):
     """The port's stacked host conditioning against JAX generate_batch's
     (each request's prepare_conditioning, concatenated on axis 0): ids,
-    indices, masks and embeddings exact, CLIP pixels within one grey level
-    (as tests/test_torch_pipeline.py)."""
+    indices, masks, embeddings and CLIP pixels exact (as
+    tests/test_torch_pipeline.py)."""
     jpipe, ppipe = pipes
     faces, labels, embeds = _faces()
     got = ppipe.prepare_batch(PROMPTS, faces, None, labels, embeds)
@@ -183,11 +183,7 @@ def test_generate_batch_stacks_conditioning_like_jax(pipes):
     assert got.keys() == want.keys()
     for k in want:
         assert got[k].shape == want[k].shape, k
-        if k in ("face_pixels", "region_pixels"):
-            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=0.016,
-                                       err_msg=k)
-        else:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("scheduler", ["euler", "dpmpp_2m"])

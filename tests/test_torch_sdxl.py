@@ -114,8 +114,8 @@ def pipes():
 
 def test_prepare_conditioning_xl(pipes):
     """Both tokenizers' ids, the trigger indices and time_ids exact (the
-    second tokenizer pads with id 0); CLIP pixels within one grey level
-    (0.016, as the SD1.5 test)."""
+    second tokenizer pads with id 0); CLIP pixels exact (as the SD1.5
+    test)."""
     jpipe, _, ppipe, jcond = pipes
     face, labels, faceid = face_inputs()
     pcond = ppipe.prepare_conditioning(PROMPT, face, parsing_labels=labels,
@@ -132,8 +132,7 @@ def test_prepare_conditioning_xl(pipes):
     np.testing.assert_array_equal(pcond["time_ids"],
                                   [[SIZE, SIZE, 0, 0, SIZE, SIZE]])
     for key in ("face_pixels", "region_pixels"):
-        np.testing.assert_allclose(pcond[key], jcond[key], rtol=0, atol=0.016,
-                                   err_msg=key)
+        np.testing.assert_array_equal(pcond[key], jcond[key], err_msg=key)
 
 
 @pytest.mark.parametrize("text", [

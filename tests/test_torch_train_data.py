@@ -8,9 +8,8 @@ dropout branches against JAX's on the same cache.
 
 Limits: the LANCZOS resize at most one grey level a pass (it reads 0: the
 port repeats PIL's fixed-point arithmetic); integer, boolean and mask
-fields equal; CLIP pixels within two grey levels (the port's bicubic is
-torch's antialiased one, one grey level a pass from PIL's:
-2 / 255 / 0.2613 < 0.031); cached tensors relative L2 1e-5 (fp32,
+fields equal; CLIP pixels equal (the port's bicubic is PIL's fixed-point
+one in numpy); cached tensors relative L2 1e-5 (fp32,
 summation order only). JAX's encoders are jitted once.
 """
 import json
@@ -43,7 +42,6 @@ from test_torch_loading import one_torch_thread  # noqa: F401
 from test_torch_training import _bundle_params
 
 GREY = 2.0 / 255.0          # one grey level in [-1, 1]
-CLIP_PIXELS = 0.031         # two grey levels after CLIP's normalisation
 SIZE, CLIP = 32, 28         # the examples' image and CLIP sizes
 N_ITEMS = 4
 
@@ -124,8 +122,7 @@ def _assert_example(got, want):
     np.testing.assert_allclose(got["images"], want["images"], rtol=0,
                                atol=GREY + 1e-6)
     for key in ("face_pixels", "region_pixels"):
-        np.testing.assert_allclose(got[key], want[key], rtol=0,
-                                   atol=CLIP_PIXELS, err_msg=key)
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_fgid_dataset_matches_jax(tmp_path):
