@@ -150,6 +150,16 @@ Phases, each printing its result; any failure exits non-zero:
      512 px, max batch 2) answering 2 concurrent requests;
  28. SDXL int8_static inside phase 16: calibrated (8 steps), one request
      at 1024x1024 (K1 3500, int_mm 50 per int8 layer).
+ 29. eval and checkpoint validation (after phase 27, on the set of phase
+     12): `apps.validate.main` at full width (512 px, 50 DDIM steps) with
+     every converter stage (each entry ok: no unconsumed key, no zero
+     kernel, nothing non-finite), SD1.5 and inpaint, FaceSim and CLIP-T
+     (seeded projection heads), `--sweep 4` and `--mode-sweep 4`: the
+     seven serving modes each scored, a warm-up and a batch-4 request
+     each, K1 500 a request (375, 335 at DeepCache intervals 2, 3; 400
+     the inpaint at strength 0.8) on sm90; then `apps.eval_sweep.main
+     --synthesize-protocol --limit 8 --batch-size 4` (rows/min; K1 500 a
+     batch). Random weights: the scores test the plumbing, not quality.
 Phase 9 runs after phase 3, phases 21, 22, 24, 25 and then 10 to 17 after
 phase 5 (before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
 (1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
@@ -1722,20 +1732,24 @@ def checker_resize_ms(images) -> dict:
     checker runs it (the host-to-card copy included) and on the host as
     CLIP's preprocessing runs it, beside torch's antialiased bicubic on the
     host (one grey level a pass from PIL's). Fails unless the card's
-    result is the host's, bit for bit."""
+    result is the host's, bit for bit, for it and for the BILINEAR resize
+    (ArcFace's 112 px input, BiSeNet's and the detector's)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from consistentid_torch.utils.image import resize_bicubic_uint8
+    from consistentid_torch.utils.image import (resize_bicubic_uint8,
+                                                resize_bilinear_uint8)
 
-    def card():
+    def card(resize=resize_bicubic_uint8, size=224):
         x = torch.from_numpy(np.ascontiguousarray(images)).cuda()
-        return torch.stack([resize_bicubic_uint8(i, 224, 224) for i in x])
+        return torch.stack([resize(i, size, size) for i in x])
 
-    host = np.stack([resize_bicubic_uint8(i, 224, 224) for i in images])
-    if not np.array_equal(card().cpu().numpy(), host):
-        raise AssertionError("the bicubic resize on the card differs from "
-                             "the host's")
+    for resize, size in ((resize_bicubic_uint8, 224),
+                         (resize_bilinear_uint8, 112)):
+        host = np.stack([resize(i, size, size) for i in images])
+        if not np.array_equal(card(resize, size).cpu().numpy(), host):
+            raise AssertionError(f"{resize.__name__} on the card differs "
+                                 "from the host's")
 
     def torch_bicubic():
         for image in images:
@@ -3724,7 +3738,8 @@ def infer_int8_phase(paths, outdir):
 
 def serve_int8_phase(paths, outdir):
     """`apps.serve.main --quant int8_static --calib-image face.png` (512
-    px, 50 Euler steps, max batch 2) on 127.0.0.1: it calibrates, warms
+    px, 50 DDIM steps, the server's default sampler; max batch 2) on
+    127.0.0.1: it calibrates, warms
     buckets 1 and 2 and answers 2 concurrent requests 200 with (512, 512,
     3) PNGs; 500 K1 launches and 50 int_mm launches per int8 layer per
     batch. The server is shut down at the end."""
@@ -3799,7 +3814,7 @@ def serve_int8_phase(paths, outdir):
             raise AssertionError(
                 f"serve int8_static: quant {held['pipe'].bundle.quant}, K1 "
                 f"{launches[0]}, int_mm {mm} in {batches} batches")
-        log(f"serve --quant int8_static --calib-image (512 px, 50 Euler "
+        log(f"serve --quant int8_static --calib-image (512 px, 50 DDIM "
             f"steps, max batch 2): up (load, calibration, warm-up) in "
             f"{ready_s:.1f} s; 2 concurrent requests in {s:.3f} s, "
             f"{batches} batch(es), K1 {launches[0]}, int_mm {mm}")
@@ -3813,6 +3828,152 @@ def serve_int8_phase(paths, outdir):
         if thread.is_alive():
             raise AssertionError("serve int8_static: the server thread did "
                                  "not stop")
+
+
+def k1_per_request(steps: int, interval: int = 1) -> int:
+    """K1 launches of one text-to-image request of `steps` steps at 512 px:
+    10 per full UNet call, 5 per DeepCache-cached one (level 0 only), the
+    full calls at every `interval`-th step from the first."""
+    full = -(-steps // interval)
+    return 10 * full + 5 * (steps - full)
+
+
+# K1 launches of `calibrate_int8(num_calib_steps=4)`: one UNet call a step
+CALIBRATION_K1 = 10 * 4
+
+
+def validate_phase(paths, outdir):
+    """The eval and checkpoint-validation CLIs on the written full-size set
+    (fp16): `apps.validate.main` at full width (512 px, 50 DDIM steps,
+    merge step 30) with every converter stage (an ONNX copy of the ArcFace
+    pack written for the ONNX reader, the safety checker), the pipeline
+    stage (SD1.5 and inpaint, one image each), FaceSim and CLIP-T (seeded
+    random (1024, 768) and (1024, 1280) projection heads), `--sweep 4` and
+    `--mode-sweep 4` (seven modes, a short warm-up and one batch of 4
+    each); then `apps.eval_sweep.main --synthesize-protocol --limit 8
+    --batch-size 4`. Fails unless every converter entry is ok, the report
+    is ok, every mode has img_per_min, face_sim and clip_t, K1 ran on sm90
+    exactly its count over the run (500 a text-to-image request, 375 and
+    335 at DeepCache intervals 2 and 3, 400 the inpaint at strength 0.8,
+    40 the calibration) and no other kernel ran. Random weights: the
+    scores test the plumbing, not quality."""
+    import numpy as np
+    import torch
+    from consistentid_torch.apps import eval_sweep, validate
+    from consistentid_torch.io.onnx_reader import write_onnx_initializers
+    from consistentid_torch.io.safetensors_reader import (read_checkpoint,
+                                                          write_safetensors)
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.utils.png import encode_png
+
+    root = Path(outdir) / "validate"
+    root.mkdir()
+    onnx = str(root / "arcface.onnx")
+    write_onnx_initializers(onnx, read_checkpoint(paths["arcface_path"]))
+    rng = np.random.RandomState(4)
+    proj = str(root / "clip_projections.safetensors")
+    write_safetensors(proj, {
+        "text_projection.weight": (rng.randn(1024, 768) * 0.02).astype(
+            np.float32),
+        "visual_projection.weight": (rng.randn(1024, 1280) * 0.02).astype(
+            np.float32)})
+    face = str(root / "face.png")
+    with open(face, "wb") as f:
+        f.write(encode_png(face_inputs()[0]))
+    report_path = str(root / "report.json")
+    argv = ["--base", paths["base"],
+            "--consistentid", paths["consistentid_path"],
+            "--image-encoder", paths["image_encoder_path"],
+            "--bisenet", paths["bisenet_path"],
+            "--arcface", paths["arcface_path"], "--arcface-onnx", onnx,
+            "--scrfd", paths["scrfd_path"],
+            "--safety-checker", str(Path(paths["base"]) / "safety_checker"),
+            "--clip-projections", proj, "--face", face, "--sweep", "4",
+            "--mode-sweep", "4", "--out", report_path]
+    counters = launch_counters() + bn_counters()
+    k1 = fa.flash_attention_fwd
+
+    fa.reset_launches(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = validate.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = [w.launches for w in counters]
+    with open(report_path) as f:
+        report = json.load(f)
+    files = report["files"]
+    bad = [k for k, e in files.items() if not e["ok"]]
+    if rc != 0 or not report["ok"] or bad or len(files) != 10:
+        raise AssertionError(f"validate: rc {rc}, ok {report['ok']}, "
+                             f"entries {sorted(files)}, failing {bad}: "
+                             f"{json.dumps(report)[:2000]}")
+    modes = report["metrics"]["mode_sweep"]
+    want_modes = [m for m, _, _ in validate.SERVING_MODES]
+    if list(modes) != want_modes or any(
+            not {"img_per_min", "face_sim", "clip_t"} <= set(r)
+            for r in modes.values()):
+        raise AssertionError(f"validate: mode sweep {modes}")
+    # sd15, inpaint, the 4-row sweep, the calibration, then each mode's
+    # warm-up and measured batch
+    want_k1 = (k1_per_request(50) + 10 * int(50 * 0.8)
+               + k1_per_request(50) + CALIBRATION_K1 + sum(
+                   k1_per_request(validate.WARMUP_STEPS, interval)
+                   + k1_per_request(50, interval)
+                   for _, _, interval in validate.SERVING_MODES))
+    if (launches != [want_k1, 0, 0, 0, 0]
+            or k1.launches_by_route["sm90"] != want_k1):
+        raise AssertionError(
+            f"validate: launches K1-K6 {launches} (K1 by route "
+            f"{k1.launches_by_route}), K1 expected {want_k1} on sm90")
+    for mode, _, interval in validate.SERVING_MODES:
+        rec = modes[mode]
+        log(f"validate mode {mode:>18} (batch 4, 512 px, 50 DDIM steps, one "
+            f"sample): {4 * 60 / rec['img_per_min']:.4f} s/request, img/min "
+            f"{rec['img_per_min']}, face_sim {rec['face_sim']}, clip_t "
+            f"{rec['clip_t']}, K1 {k1_per_request(50, interval)} a request")
+    metrics = report["metrics"]
+    stage_s = report["seconds"]
+    log(f"validate CLI on the 4.18 GiB fp16 set: {seconds:.1f} s in all "
+        f"(converters {stage_s['converters']:.2f} s, every entry ok; "
+        f"pipeline stages {stage_s['pipelines']:.2f} s); sd15 "
+        f"{report['pipelines']['sd15']['shape']}, inpaint "
+        f"{report['pipelines']['inpaint']['shape']}; face_sim "
+        f"{metrics['face_sim']:.4f}, clip_t {metrics['clip_t']:.4f}; sweep "
+        f"{metrics['sweep']}; K1 {launches[0]} on sm90 (expected {want_k1})"
+        " (random weights: the scores test the plumbing, not quality)")
+
+    out = root / "sweep"
+    fa.reset_launches(*counters)
+    rc = eval_sweep.main(["--base", paths["base"],
+                          "--consistentid", paths["consistentid_path"],
+                          "--image-encoder", paths["image_encoder_path"],
+                          "--bisenet", paths["bisenet_path"],
+                          "--arcface", paths["arcface_path"],
+                          "--scrfd", paths["scrfd_path"],
+                          "--output-dir", str(out),
+                          "--synthesize-protocol", "--limit", "8",
+                          "--batch-size", "4"])
+    sweep_launches = [w.launches for w in counters]
+    with open(out / "sweep_summary_shard0.json") as f:
+        summary = json.load(f)
+    want_k1 = 2 * k1_per_request(50)
+    if (rc != 0 or summary["rows_this_shard"] != 8
+            or sweep_launches != [want_k1, 0, 0, 0, 0]
+            or k1.launches_by_route["sm90"] != want_k1
+            or "mean_face_sim" not in summary):
+        raise AssertionError(f"eval_sweep: rc {rc}, {summary}, launches "
+                             f"{sweep_launches} (K1 by route "
+                             f"{k1.launches_by_route})")
+    log(f"eval_sweep CLI (--synthesize-protocol --limit 8 --batch-size 4, "
+        f"512 px, 50 DDIM steps): {summary['rows_per_min']} rows/min over "
+        f"{summary['wall_s']} s, mean latency {summary['mean_latency_s']:.3f}"
+        f" s a row, K1 {want_k1} in 2 batches on sm90; {summary}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, stage_s=stage_s, modes=modes,
+                face_sim=metrics["face_sim"], clip_t=metrics["clip_t"],
+                sweep=metrics["sweep"], launches=launches,
+                eval_sweep=summary, eval_sweep_launches=sweep_launches[0])
 
 
 # headline (SD1.5, batch 4 with CFG: 8 rows, 512 px) shapes of the micro-
@@ -3982,6 +4143,7 @@ def main() -> int:
         int8["serve"] = serve_int8_phase(paths, tmp)
         gc.collect()
         torch.cuda.empty_cache()
+        validated = validate_phase(paths, tmp)
         cli = train_cli_phase(paths, tmp)
         sdxl_bundle, sdxl = sdxl_path()
         int8["sdxl_int8_static"] = sdxl.pop("int8_static")
@@ -4071,6 +4233,8 @@ def main() -> int:
          "launches_per_infer_inpaint": infer_variants["inpaint"]["launches"],
          "launches_per_infer_deepcache":
              infer_variants["deepcache"]["launches"],
+         "launches_in_validate_run": validated["launches"][0],
+         "launches_in_eval_sweep_run": validated["eval_sweep_launches"],
          "launches_note": "launches: per generate (batch 4, 50 DDIM steps,"
                           " 512 px); also per infer call (768x512, 50 "
                           "Euler steps), per served batch (512 px, 50 "
@@ -4085,7 +4249,12 @@ def main() -> int:
                           " 4 at intervals 1, 2, 3; SDXL 1 image at 3) and "
                           "infer call with --init-image --mask-image and "
                           "with --cache-interval 3 (768x512, 50 Euler "
-                          "steps); C0, C1: the init-image paths' shapes"},
+                          "steps); in all over one apps.validate run "
+                          "(SD1.5 and inpaint images, a 4-row sweep, the "
+                          "int8 calibration, each serving mode's warm-up and"
+                          " batch-4 request) and one apps.eval_sweep run "
+                          "(two batches of 4; 512 px, 50 DDIM steps); C0, "
+                          "C1: the init-image paths' shapes"},
         {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
@@ -4137,6 +4306,7 @@ def main() -> int:
                     "perception": perception, "photo_generate": photo,
                     "dq_order": dq_order, "load": loaded, "infer": inferred,
                     "samplers": samplers, "serve": served, "sdxl": sdxl,
+                    "validate": validated,
                     "sdxl_infer": sdxl_infer,
                     "tiny_card_vs_cpu": tiny, "unet_profile": profile,
                     "training_path": train, "train_profile": train_profile,

@@ -18,6 +18,10 @@ API:
   POST /generate   JSON {prompt, image_b64 (PNG), negative_prompt?, seed?}
                    -> {image_b64 (PNG), batch_size}
     seed is per request: each request's latents come from its own seed.
+    The server samples with DDIM, as the JAX server does, unless
+    --scheduler names another sampler. The infer CLI's --seed,
+    --num-images, --out and --negative-prompt, and --lora-scale or
+    --ip-scale at other than 1.0, exit through the parser.
     --cache-interval N serves every batch with DeepCache (the infer CLI's
     flag, carried by the pipeline's PipelineConfig as in the JAX server).
     --quant int8 serves the W8A8 UNet; --quant int8_static calibrates its
@@ -250,6 +254,12 @@ def build_parser():
 
     p = infer_parser(one_shot=False)
     p.description = __doc__
+    # the JAX server samples with PipelineConfig's default (ddim); an
+    # explicit --scheduler is honoured here (JAX drops it). The infer
+    # flags a request overrides or the server never reads default to None,
+    # so main can refuse them when given
+    p.set_defaults(scheduler="ddim", seed=None, num_images=None, out=None,
+                   negative_prompt=None)
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address; 0.0.0.0 only behind a real ingress "
                         "(this server has no auth)")
@@ -285,6 +295,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.init_image or args.mask_image:
         p.error("the server serves text to image only; --init-image and "
                 "--mask-image are the infer CLI's")
+    for flag in ("seed", "num_images", "out", "negative_prompt"):
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag.replace('_', '-')} is the infer CLI's: a "
+                    "request brings its own seed and negative prompt, and "
+                    "gets one image back")
+    for flag in ("lora_scale", "ip_scale"):
+        if getattr(args, flag) != 1.0:
+            p.error(f"--{flag.replace('_', '-')} is the infer CLI's: the "
+                    "server serves, and calibrates int8_static, at 1.0")
     check_args(p, args)
     if args.quant == "int8_static" and not (args.calib_image
                                             or args.act_scales):

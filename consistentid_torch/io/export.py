@@ -45,7 +45,8 @@ def write_reference_checkpoints(
         safety_checker: Optional[nn.Module] = None,
         vocab: Optional[Mapping[str, int]] = None,
         dtype=np.float16,
-        image_encoder: bool = True) -> Tuple[Dict[str, str], int]:
+        image_encoder: bool = True,
+        consistentid: bool = True) -> Tuple[Dict[str, str], int]:
     """Write the set under `outdir`; returns ({name: path} in the
     loaders' argument names, bytes written). bundle: an SD15Bundle (dump in
     sd15/, ConsistentID-v1.bin) or an SDXLBundle (dump in sdxl/ with
@@ -53,7 +54,8 @@ def write_reference_checkpoints(
     ConsistentID_SDXL-v1.bin under the SDXL prefixes); the perception
     models are the port's BiSeNet, IResNet, SCRFD and SafetyChecker
     modules; vocab: a CLIP BPE vocab (no merges); image_encoder=False
-    leaves the image encoder out (a set that shares another's)."""
+    leaves the image encoder out (a set that shares another's), and
+    consistentid=False the adapter checkpoint (a base dump alone)."""
     sdxl = bundle.unet_config.is_sdxl
     name = "sdxl" if sdxl else "sd15"
     base = os.path.join(outdir, name)
@@ -97,16 +99,19 @@ def write_reference_checkpoints(
             "image_encoder.safetensors", clip_vision_to_hf(
                 tree_from_module(bundle.image_encoder)[0],
                 bundle.vision_config))
-    adapters = {"unet": unet, "proj": tree_from_module(bundle.proj)[0],
-                "facial_encoder": tree_from_module(bundle.facial_encoder)[0]}
-    paths["consistentid_path"] = save_torch(
-        "ConsistentID_SDXL-v1.bin" if sdxl else "ConsistentID-v1.bin",
-        export_consistentid_checkpoint(
-            adapters, bundle.unet_config,
-            proj_depth=_depth(adapters["proj"]["perceiver_resampler"]),
-            facial_depth=_depth(
-                adapters["facial_encoder"]["visual_projection"])))
-    del unet, adapters
+    if consistentid:
+        adapters = {"unet": unet, "proj": tree_from_module(bundle.proj)[0],
+                    "facial_encoder": tree_from_module(
+                        bundle.facial_encoder)[0]}
+        paths["consistentid_path"] = save_torch(
+            "ConsistentID_SDXL-v1.bin" if sdxl else "ConsistentID-v1.bin",
+            export_consistentid_checkpoint(
+                adapters, bundle.unet_config,
+                proj_depth=_depth(adapters["proj"]["perceiver_resampler"]),
+                facial_depth=_depth(
+                    adapters["facial_encoder"]["visual_projection"])))
+        del adapters
+    del unet
 
     if parser is not None:
         paths["bisenet_path"] = save_torch(

@@ -2,13 +2,10 @@
 resize of a tensor on the card.
 
 The JAX package does this with PIL (its utils/image.py and the perception
-models' makers). Here an image is an (H, W, 3) uint8 array. The BICUBIC
-and LANCZOS resizes are PIL's fixed-point resample in torch integer ops,
-bit for bit on the CPU and on the card; NEAREST is PIL's in numpy. The
-BILINEAR one is torch's antialiased bilinear, which uses PIL's filter and
-supports scaling; like PIL it resizes one axis at a time and rounds to
-uint8 after each, so the two agree to one grey level but for rare values
-(two: one per pass; PIL's filters are fixed-point).
+models' makers). Here an image is an (H, W, 3) uint8 array. The
+BILINEAR, BICUBIC and LANCZOS resizes are PIL's fixed-point resample in
+torch integer ops, bit for bit on the CPU and on the card; NEAREST is
+PIL's in numpy.
 """
 from __future__ import annotations
 
@@ -17,7 +14,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -33,22 +29,6 @@ def _as_rgb_uint8(image) -> np.ndarray:
     return arr
 
 
-def resize_bilinear_uint8(image: np.ndarray, height: int,
-                          width: int) -> np.ndarray:
-    """PIL BILINEAR resize of an (H, W, C) uint8 image: a horizontal then
-    a vertical pass of torch's antialiased bilinear, each rounded to uint8
-    (a pass at scale 1 is the identity, so each call resizes one axis); the
-    identity at the image's own size, as PIL's resize is."""
-    if image.shape[:2] == (height, width):
-        return np.array(image)
-    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
-    x = x.float()
-    for size in ((x.shape[2], width), (height, width)):
-        x = F.interpolate(x, size=size, mode="bilinear", align_corners=False,
-                          antialias=True).round().clamp(0, 255)
-    return x[0].permute(1, 2, 0).to(torch.uint8).numpy()
-
-
 # PIL's 8-bit resampling: coefficients in fixed point with 22 fraction bits
 _PRECISION_BITS = 22
 
@@ -57,6 +37,11 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     """PIL's LANCZOS filter: sinc(x) sinc(x / 3) on [-3, 3)."""
     return np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3.0),
                     0.0)
+
+
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    """PIL's BILINEAR (triangle) filter on [-1, 1]."""
+    return np.maximum(1.0 - np.abs(x), 0.0)
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:
@@ -68,15 +53,16 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
 
 
 # PIL's 8-bit filters with their support
-_PIL_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+_PIL_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0),
+                "bilinear": (_bilinear, 1.0)}
 
 
 def _pil_coeffs(in_size: int, out_size: int,
                 kind: str) -> Tuple[np.ndarray, np.ndarray]:
     """PIL's precompute_coeffs and normalize_coeffs_8bpc for one axis with
-    its LANCZOS or BICUBIC filter: per output pixel the filter widened by
-    the scale when downsampling, its weights summed in order and normalised
-    to sum 1, then rounded to fixed point. Returns the (out_size, ksize)
+    its LANCZOS, BICUBIC or BILINEAR filter: per output pixel the filter
+    widened by the scale when downsampling, its weights summed in order and
+    normalised to sum 1, then rounded to fixed point. Returns the (out_size, ksize)
     source indices (clamped where the window is shorter; their weights are
     0) and int32 weights."""
     filt, filter_support = _PIL_FILTERS[kind]
@@ -132,6 +118,12 @@ def _resize_pil(image, height: int, width: int, kind: str):
     if out.shape[0] != height:
         out = _pil_pass(out, height, dim=0, kind=kind)
     return out.numpy().copy() if host else out.clone()
+
+
+def resize_bilinear_uint8(image, height: int, width: int):
+    """PIL BILINEAR resize of an (H, W[, C]) uint8 image, bit for bit: a
+    numpy array on the CPU, or a tensor on its device."""
+    return _resize_pil(image, height, width, "bilinear")
 
 
 def resize_lanczos_uint8(image: np.ndarray, height: int,

@@ -1,7 +1,13 @@
 """The port's entry points on the CPU: the `infer` CLI and the `serve` HTTP
-server on reference-layout checkpoints (tiny configs, written by the JAX
-package's `apps.validate.synthesize`, see test_torch_loading.py), and the
-PNG codec that stands in for PIL (PIL is the oracle here)."""
+server on reference-layout checkpoints (tiny configs, written by the port's
+`apps.validate.synthesize`), and the PNG codec that stands in for PIL (PIL
+is the oracle here).
+
+The set is the port's own, written and read by the port, for speed. A
+layout fault that its writer and reader share is held in
+test_torch_loading.py, which holds the port's set to the JAX package's
+file list, keys and shapes and loads the set that the JAX package
+writes."""
 import base64
 import io
 import json
@@ -17,15 +23,15 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from consistentid_torch.apps import infer, serve
+from consistentid_torch.apps import infer, serve, validate
 from consistentid_torch.utils.png import (decode_png, encode_png, png_size,
                                           read_image)
-from test_torch_loading import fast_synthesize, one_torch_thread  # noqa: F401
+from test_torch_loading import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def synth(tmp_path_factory):
-    return fast_synthesize(str(tmp_path_factory.mktemp("synth")))
+    return validate.synthesize(str(tmp_path_factory.mktemp("synth")))
 
 
 def _face(seed=0, shape=(96, 80, 3)):
@@ -244,6 +250,46 @@ def test_serve_cli_calibrates_int8_static(synth, tmp_path, monkeypatch):
             assert float(got[key][conv]["act_scale"]) == float(
                 merged[key][conv]["act_scale"])
     assert os.path.getsize(scales) > 0
+
+
+def test_serve_cli_samples_with_ddim_by_default(synth, monkeypatch):
+    """The JAX server serves PipelineConfig's default sampler, DDIM (it
+    drops --scheduler); the port's serves DDIM too unless --scheduler names
+    another, which it honours."""
+    served = []
+    real_serve = serve.serve
+
+    def spy(pipe, *a, **kw):
+        served.append(pipe.config.scheduler)
+        return real_serve(pipe, *a, **kw)
+
+    monkeypatch.setattr(serve, "serve", spy)
+    monkeypatch.setattr(serve.ThreadingHTTPServer, "serve_forever",
+                        lambda self: None)
+    for flags in ([], ["--scheduler", "euler"]):
+        serve.main(_args(synth, "--no-warmup", "--port", "0",
+                         "--no-safety-checker", *flags))
+    assert served == ["ddim", "euler"]
+    assert serve.build_parser().parse_args(
+        ["--base", "b"]).scheduler == "ddim"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--lora-scale", "0.5"], ["--ip-scale", "0.8"], ["--seed", "3"],
+    ["--num-images", "2"], ["--out", "x.png"],
+    ["--negative-prompt", "blurry"]])
+def test_serve_refuses_the_infer_flags_it_cannot_honour(flags, capsys):
+    """A request brings its own seed and negative prompt and gets one image
+    back, and the server serves (and calibrates) at lora and IP scale 1:
+    these infer flags exit through the parser, before anything is
+    loaded. The scales at 1.0 are accepted."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--base", "b", *flags])
+    assert exc.value.code == 2
+    assert "is the infer CLI's" in capsys.readouterr().err
+    args = serve.build_parser().parse_args(
+        ["--base", "b", "--lora-scale", "1.0", "--ip-scale", "1"])
+    assert args.lora_scale == args.ip_scale == 1.0
 
 
 def test_serve_parser_takes_cache_interval(capsys):

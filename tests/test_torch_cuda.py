@@ -10,7 +10,9 @@ CPU; the tiny img2img, inpaint (4- and 9-channel), ControlNet-inpaint and
 DeepCache cores on the card against the CPU; the int8 products
 (torch._int_mm against the exact integer product, bit for bit, at the int8
 UNet's shapes and at m <= 16), the int8 layers and the tiny int8 UNet on
-the card against the CPU; PIL's resample on the card against the CPU.
+the card against the CPU; PIL's resample on the card against the CPU; the
+eval scorers (CLIP-T, FaceSim) and the PhotoMaker encoder on the card
+against the CPU, and the validation CLI's tiny self-test on the card.
 Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs on a machine without it:
 
@@ -913,12 +915,12 @@ def test_tiny_int8_unet_card_vs_cpu(cuda_generator, quant_mode,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["bicubic", "lanczos"])
+@pytest.mark.parametrize("kind", ["bicubic", "lanczos", "bilinear"])
 def test_pil_resize_card_vs_cpu(cuda_generator, kind):
     """The PIL resample on a card tensor (the safety checker's route) gives
-    the CPU's bits (held to PIL's in tests/test_torch_quant.py and
-    test_torch_train_data.py): down by more than 4, up, one axis, a grey
-    image."""
+    the CPU's bits (held to PIL's in tests/test_torch_quant.py,
+    test_torch_train_data.py and test_torch_perception.py): down by more
+    than 4, up, one axis, a grey image."""
     import numpy as np
 
     from consistentid_torch.utils import image as port_image
@@ -933,3 +935,111 @@ def test_pil_resize_card_vs_cpu(cuda_generator, kind):
                                      kind)
         assert got.device.type == "cuda" and got.dtype == torch.uint8
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _tiny_twins(dtype):
+    """The tiny SD1.5 bundle on the CPU (fp32) and on the card in `dtype`,
+    with the same weights."""
+    from consistentid_torch.testing import tiny_bundle
+    cpu = tiny_bundle(device="cpu", seed=3)
+    card = tiny_bundle(device="cuda", dtype=dtype, seed=4)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+# the eval scorers and the PhotoMaker encoder on the card against the CPU:
+# fp32 with TF32 off, summation order only (1e-5 on a cosine, relative L2
+# 1e-5 on the fused embeds); bf16 towers, weights and activations rounded
+# to 8 bits of mantissa (2e-2 on a cosine, relative L2 2e-2)
+EVAL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clip_t_scorer_card_vs_cpu(cuda_generator, dtype):
+    import numpy as np
+
+    from consistentid_torch.conditioning import SimpleTokenizer
+    from consistentid_torch.eval import CLIPTScorer
+    cpu, card = _tiny_twins(dtype)
+    rng = np.random.RandomState(1)
+    tp = rng.randn(64, 16).astype(np.float32)
+    vp = rng.randn(32, 16).astype(np.float32)
+    img = rng.randint(0, 255, (64, 48, 3), np.uint8)
+    with tf32_off():
+        for prompt in ("a man with a face", "a red hat " * 40):
+            want = CLIPTScorer(cpu, SimpleTokenizer(), tp, vp)(prompt, img)
+            got = CLIPTScorer(card, SimpleTokenizer(), tp, vp)(prompt, img)
+            assert abs(got - want) <= EVAL_TOL[dtype], (prompt, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_photomaker_encoder_card_vs_cpu(cuda_generator, dtype):
+    from consistentid_torch.core import CLIPVisionConfig
+    from consistentid_torch.eval import PhotoMakerIDEncoder
+    cfg = CLIPVisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                           intermediate_size=64, num_layers=2, num_heads=2)
+    torch.manual_seed(0)
+    cpu = PhotoMakerIDEncoder(cfg, projection_dim=8, projection_dim_2=8)
+    card = PhotoMakerIDEncoder(cfg, projection_dim=8, projection_dim_2=8)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to("cuda", dtype)
+    g = torch.Generator().manual_seed(1)
+    pixels = torch.randn(2, 3, 28, 28, 3, generator=g)
+    prompt = torch.randn(2, 12, 16, generator=g)
+    idx = torch.tensor([[2, 5, 9], [1, 3, 0]])
+    mask = torch.tensor([[True, True, True], [True, True, False]])
+    with torch.no_grad(), tf32_off():
+        want = cpu(pixels, prompt, idx, mask)
+        got = card(pixels.cuda().to(dtype), prompt.cuda().to(dtype),
+                   idx.cuda(), mask.cuda())
+    assert rel_l2(got.cpu(), want) <= EVAL_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_face_sim_scorer_card_vs_cpu(cuda_generator):
+    """The tiny iresnet embedder (fp32, center crop) on both devices, TF32
+    off: the FaceSim cosine within 1e-5."""
+    import numpy as np
+
+    from consistentid_torch.eval import FaceSimScorer
+    from consistentid_torch.models.arcface import IResNet, make_face_embedder
+    model = IResNet((1, 1, 1, 1), 16, 32)
+    randomize_perception_module(model, torch.Generator().manual_seed(2))
+    state = model.state_dict()
+    rng = np.random.RandomState(3)
+    ref = rng.randint(0, 255, (48, 40, 3), np.uint8)
+    gen = np.clip(ref.astype(int) + rng.randint(-30, 30, ref.shape), 0,
+                  255).astype(np.uint8)
+    with tf32_off():
+        want = FaceSimScorer(make_face_embedder(
+            state, allow_center_crop=True, device="cpu"))(ref, gen)
+        got = FaceSimScorer(make_face_embedder(
+            state, allow_center_crop=True, device="cuda"))(ref, gen)
+    assert abs(got - want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_validate_synthesize_tiny_on_card(cuda_generator, tmp_path):
+    """`apps.validate --synthesize DIR --tiny --device cuda --sweep 2
+    --mode-sweep 2`: every converter ok, the three pipelines, FaceSim,
+    CLIP-T, the sweep and the seven serving modes of SD1.5 and SDXL, K1
+    launched (the tiny UNets' 1024-token self-attention, fp32)."""
+    import json
+
+    from consistentid_torch.apps import validate
+    out = str(tmp_path / "report.json")
+    before = port_flash.flash_attention_fwd.launches
+    assert validate.main(["--synthesize", str(tmp_path / "set"), "--tiny",
+                          "--device", "cuda", "--sweep", "2",
+                          "--mode-sweep", "2", "--out", out]) == 0
+    with open(out) as f:
+        report = json.load(f)
+    assert report["ok"] and len(report["files"]) == 14
+    assert set(report["pipelines"]) == {"sd15", "inpaint", "sdxl"}
+    for key in ("mode_sweep", "mode_sweep_xl"):
+        assert list(report["metrics"][key]) == [
+            m for m, _, _ in validate.SERVING_MODES]
+    assert {"face_sim", "clip_t"} <= set(report["metrics"])
+    assert port_flash.flash_attention_fwd.launches > before

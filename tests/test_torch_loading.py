@@ -31,7 +31,9 @@ from consistentid_tpu.pipelines.loading import \
     _safety_checker_vision_config as jax_sc_config
 from consistentid_tpu.pipelines.loading import \
     load_sd15_consistentid as jax_load_sd15
+from consistentid_tpu.pipelines import SD15Bundle as JaxSD15Bundle
 from consistentid_tpu.testing import tiny_bundle as jax_tiny_bundle
+from consistentid_torch.apps import validate as port_validate
 from consistentid_torch.conditioning import CLIPBPETokenizer
 from consistentid_torch.io import convert, export_backbones as exp
 from consistentid_torch.io import params_from_jax, state_from_jax
@@ -92,6 +94,24 @@ def fast_flax_init(seed: int = 0):
         yield
 
 
+def tiny_tree_shapes(jbundle):
+    """The tree of `jbundle.init_params` (the JAX tiny SD1.5 bundle), its
+    leaves read off the port's tiny bundle: the same leaves at the same
+    shapes, flattened in the same order (`params_from_jax` loads one into
+    the other strictly), without tracing flax's init (4.5 s a call on
+    this CPU against 0.5 s). Numpy draws over it give the draws over
+    `jax.eval_shape(jbundle.init_params, ...)` bit for bit."""
+    import dataclasses
+
+    port = tiny_bundle(device="cpu")
+    for name in ("unet_config", "adapter_config", "vae_config",
+                 "text_config", "vision_config"):
+        theirs, ours = (dataclasses.asdict(getattr(b, name))
+                        for b in (jbundle, port))
+        assert all(theirs[k] == ours[k] for k in ours), name
+    return tree_from_module(port)[0]
+
+
 def fast_synthesize(outdir: str):
     """`apps.validate.synthesize` with fast_flax_init: the same files, the
     weights drawn by numpy."""
@@ -100,8 +120,43 @@ def fast_synthesize(outdir: str):
 
 
 @pytest.fixture(scope="module")
-def synth(tmp_path_factory):
-    return fast_synthesize(str(tmp_path_factory.mktemp("synth")))
+def synth_and_init(tmp_path_factory):
+    """The JAX package's set, and the tree of the tiny SD1.5 bundle's
+    `init_params` call that writing it makes (its flax inits traced,
+    leaves drawn by numpy in their shapes) with that bundle."""
+    inits = []
+    real = JaxSD15Bundle.init_params
+
+    def init_params(self, *args, **kwargs):
+        tree = real(self, *args, **kwargs)
+        if type(self) is JaxSD15Bundle:
+            inits.append((self, tree))
+        return tree
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxSD15Bundle, "init_params", init_params)
+        paths = fast_synthesize(str(tmp_path_factory.mktemp("synth")))
+    assert len(inits) == 1
+    return paths, inits[0]
+
+
+@pytest.fixture(scope="module")
+def synth(synth_and_init):
+    return synth_and_init[0]
+
+
+def test_tiny_tree_shapes_equal_jax_init_tree(synth_and_init):
+    """`tiny_tree_shapes` against the tree of the JAX init it stands in
+    for: the same leaf paths in the same order, shapes and dtypes, so a
+    leaf that only one package has shows here."""
+    jbundle, tree = synth_and_init[1]
+
+    def leaves(tree):
+        return [(jax.tree_util.keystr(p), tuple(np.shape(x)),
+                 np.dtype(x.dtype))
+                for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+    assert leaves(tiny_tree_shapes(jbundle)) == leaves(tree)
 
 
 FILES = ["sd15/unet", "sd15/vae", "sd15/text_encoder", "sd15/safety_checker",
@@ -378,3 +433,42 @@ def test_load_consistentid_checkpoint_matches_jax(synth, jax_tree):
     del tree["unet"]["mid_attn"]
     with pytest.raises(KeyError, match="unknown adapter target"):
         convert.load_consistentid_checkpoint(tree, sd, cfg)
+
+
+SCALAR = {(1,): ()}
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def test_port_synthesize_writes_the_jax_set(synth, tmp_path):
+    """The port's `apps.validate.synthesize` (its exporters) writes the
+    JAX package's relative file list; per checkpoint file the same keys
+    and shapes; the tokenizer and config files the same bytes. Scalars
+    (BatchNorm counters, SCRFD's box scales) are one element either way:
+    the JAX writer's np.ascontiguousarray gives a 0-d array one dimension,
+    so its torch files hold them as (1,); torch's own state dicts and the
+    port's files as ()."""
+    port_paths = port_validate.synthesize(str(tmp_path / "port"))
+    port_root = os.path.dirname(port_paths["base"])
+    jax_root = _root(synth)
+    assert set(port_paths) == set(synth)
+    names = _files(jax_root)
+    assert _files(port_root) == names
+    for name in names:
+        ours, theirs = (os.path.join(r, name) for r in (port_root, jax_root))
+        if name.endswith((".json", ".txt")):
+            with open(ours) as f, open(theirs) as g:
+                assert f.read() == g.read(), name
+            continue
+        got, want = read_checkpoint(ours), jax_read_checkpoint(theirs)
+        assert set(got) == set(want), name
+        for k in want:
+            if isinstance(want[k], dict):
+                assert {n: v.shape for n, v in got[k].items()} == \
+                    {n: v.shape for n, v in want[k].items()}, (name, k)
+            else:
+                assert got[k].shape in {want[k].shape, SCALAR.get(
+                    want[k].shape)}, (name, k)

@@ -14,9 +14,9 @@ Tolerances: whole networks 1e-4 of the output's largest magnitude
 (`assert_close_scaled`: XLA's and torch's CPU convolutions sum in other
 orders, compounded over up to 20 layers of He-scaled random weights);
 single fp32 steps 1e-5 or tighter; the keep mask of the NMS, label
-maps and flags exactly; the image preparations one grey level over the
-normalization's divisor (the port resizes with torch's antialiased filters,
-the JAX package with PIL's fixed-point ones).
+maps and flags exactly; the image preparations exactly (the port's
+BILINEAR resize is PIL's fixed-point resample, as the JAX package's PIL
+call).
 """
 import dataclasses
 
@@ -346,25 +346,14 @@ def test_face_detector_on_prepared_input(scrfd_run):
 
 # ------------------------------------------------------------ preparations
 
-def _assert_grey_levels(got, want, level):
-    """Within one grey level (`level` after normalization) but for rare
-    values (0.1%), and within two everywhere: each of the two resize passes
-    (horizontal, then vertical, each rounded to uint8) may land one level
-    off PIL's fixed-point filter."""
-    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
-    assert diff.max() <= 2 * level
-    assert (diff <= level).mean() >= 0.999
-
-
 def test_image_preparations_within_one_grey_level():
-    """The BiSeNet input (ImageNet normalization: one grey level is at most
-    1 / 255 / 0.224 < 0.0176) and the detector's letterbox (1 / 128)
-    against the JAX package's PIL steps, and the embedder's bilinear resize
-    against PIL's."""
+    """The BiSeNet input, the detector's letterbox and the embedder's
+    bilinear resize against the JAX package's PIL steps: equal, now that
+    the port's BILINEAR is PIL's fixed-point resample."""
     img = np.random.RandomState(10).randint(0, 255, (80, 60, 3), np.uint8)
-    _assert_grey_levels(
+    np.testing.assert_array_equal(
         port_image.imagenet_preprocess(img, 64),
-        jax_image.imagenet_preprocess(Image.fromarray(img), 64), 0.0176)
+        jax_image.imagenet_preprocess(Image.fromarray(img), 64))
     x, scale = port_image.detector_letterbox(img, 64)
     # the JAX package's letterbox (models/scrfd.py make_face_detector)
     nw, nh = int(round(60 * scale)), int(round(80 * scale))
@@ -372,10 +361,28 @@ def test_image_preparations_within_one_grey_level():
     canvas[:nh, :nw] = np.asarray(Image.fromarray(img).resize(
         (nw, nh), Image.BILINEAR), np.float32)
     assert x.shape == (1, 64, 64, 3) and scale == 64 / 80
-    _assert_grey_levels(x[0], (canvas - 127.5) / 128.0, 1 / 128)
+    np.testing.assert_array_equal(x[0], (canvas - 127.5) / 128.0)
     pil = np.asarray(Image.fromarray(img).resize((32, 32), Image.BILINEAR))
-    _assert_grey_levels(port_image.resize_bilinear_uint8(img, 32, 32), pil,
-                        1)
+    np.testing.assert_array_equal(
+        port_image.resize_bilinear_uint8(img, 32, 32), pil)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_resize_bilinear_is_pil(seed):
+    """Random sizes, bit for bit with PIL's BILINEAR: down by more than 4,
+    up, one axis only, the identity, RGB and grey (H, W) images."""
+    rng = np.random.RandomState(seed)
+    for _ in range(12):
+        h, w = rng.randint(1, 300, 2)
+        oh, ow = rng.choice([rng.randint(1, 80), rng.randint(80, 400), h]), \
+            rng.choice([rng.randint(1, 80), rng.randint(80, 400), w])
+        shape = (h, w, 3) if rng.rand() < 0.7 else (h, w)
+        img = rng.randint(0, 256, shape).astype(np.uint8)
+        np.testing.assert_array_equal(
+            port_image.resize_bilinear_uint8(img, oh, ow),
+            np.asarray(Image.fromarray(img).resize((ow, oh),
+                                                   Image.BILINEAR)),
+            err_msg=f"{shape} -> {(oh, ow)}")
 
 
 # ------------------------------------------------------------ safety checker

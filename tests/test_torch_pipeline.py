@@ -20,7 +20,7 @@ from consistentid_torch.io import params_from_jax
 from consistentid_torch.ops import flash_attention as port_flash
 from consistentid_torch.pipelines import ConsistentIDPipeline
 from consistentid_torch.testing import synthetic_clip_tokenizer, tiny_bundle
-from test_torch_loading import one_torch_thread  # noqa: F401
+from test_torch_loading import one_torch_thread, tiny_tree_shapes  # noqa: F401
 
 PROMPT = "portrait photo of a man with a strong face, blue eyes and a nose"
 STEPS, MERGE, GUIDANCE = 3, 1, 5.0
@@ -65,7 +65,7 @@ def pipes():
 def _bundle_params(jbundle):
     """Numpy parameters for the whole JAX bundle, drawn per component as in
     the module tests."""
-    shapes = jax.eval_shape(jbundle.init_params, jax.random.PRNGKey(0))
+    shapes = tiny_tree_shapes(jbundle)
     rng = np.random.default_rng(0)
 
     def draw(path, x):

@@ -24,7 +24,7 @@ from consistentid_torch.pipelines import ConsistentIDPipeline
 from consistentid_torch.sampling import CondBranch, denoise
 from consistentid_torch.sampling import schedulers as port_sched
 from consistentid_torch.testing import synthetic_clip_tokenizer, tiny_bundle
-from test_torch_loading import one_torch_thread  # noqa: F401
+from test_torch_loading import one_torch_thread, tiny_tree_shapes  # noqa: F401
 
 SAMPLERS = ["ddim", "euler", "ddpm", "dpmpp_2m", "pndm"]
 PORT_SCHEDULE = port_sched.NoiseSchedule.create(SchedulerConfig())
@@ -156,7 +156,7 @@ def _faces():
 @pytest.fixture(scope="module")
 def pipes():
     jbundle = jax_tiny_bundle()
-    shapes = jax.eval_shape(jbundle.init_params, jax.random.PRNGKey(0))
+    shapes = tiny_tree_shapes(jbundle)
     params = jax.tree_util.tree_map(
         lambda x: np.zeros(x.shape, x.dtype), shapes)
     jpipe = JaxPipeline(jbundle, params, jax_tokenizer())

@@ -49,7 +49,7 @@ from consistentid_torch.training import (AdamW, Draws, consistentid_loss,
                                          synthetic_encoded_batch,
                                          warm_start_ip_projections)
 from consistentid_torch.training.train_step import batch_to_tensors
-from test_torch_loading import one_torch_thread  # noqa: F401
+from test_torch_loading import one_torch_thread, tiny_tree_shapes  # noqa: F401
 
 B1 = 0.9
 
@@ -62,7 +62,7 @@ def _bundle_params(jbundle):
     """Numpy parameters for the whole JAX bundle: kernels ~ N(0, 1/fan_in),
     norm scales ~ 1 + N(0, 0.1), the rest (LoRA up-projections included)
     ~ N(0, 0.1)."""
-    shapes = jax.eval_shape(jbundle.init_params, jax.random.PRNGKey(0))
+    shapes = tiny_tree_shapes(jbundle)
     rng = np.random.default_rng(0)
 
     def draw(path, x):
@@ -380,17 +380,22 @@ def test_grad_accum_step_matches_jax(world):
         s1, m = world["step"](world["state0"],
                               {k: jnp.asarray(v) for k, v in mb.items()},
                               key)
+        # fp32 arithmetic in numpy, the same IEEE operations as JAX's: each
+        # eager JAX op over the ~300 leaves would compile on its own
         grads.append(jax.tree_util.tree_map(
-            lambda x: x / np.float32(1 - B1), s1.opt_state[0].mu))
+            lambda x: np.asarray(x) / np.float32(1 - B1),
+            s1.opt_state[0].mu))
         metrics.append(m)
-    mean = jax.tree_util.tree_map(lambda a, b: (a + b) / 2, *grads)
+    mean = jax.tree_util.tree_map(lambda a, b: (a + b) / np.float32(2),
+                                  *grads)
     state0 = world["state0"]
-    upd, _ = jax_ts.make_optimizer(world["cfg"]).update(
-        mean, state0.opt_state, state0.trainable)
-    want = _trainable_tree(jax.tree_util.tree_map(
-        np.asarray, optax.apply_updates(state0.trainable, upd)))
-    want_metrics = {k: (metrics[0][k] + metrics[1][k]) / 2
-                    for k in metrics[0]}
+    opt = jax_ts.make_optimizer(world["cfg"])
+    updated = jax.jit(lambda g, s, p: optax.apply_updates(
+        p, opt.update(g, s, p)[0]))(mean, state0.opt_state,
+                                    state0.trainable)
+    want = _trainable_tree(jax.tree_util.tree_map(np.asarray, updated))
+    want_metrics = {k: (np.float32(metrics[0][k]) + np.float32(
+        metrics[1][k])) / np.float32(2) for k in metrics[0]}
 
     cfg = TrainConfig(grad_accum_steps=2)
     bundle = _port(world)
