@@ -132,7 +132,7 @@ Phases, each printing its result; any failure exits non-zero:
      `--cache-interval 3` (335), at the JAX defaults.
  24. int8 (after phase 22, on the serving bundle): int8_static calibrated
      on the seeded face (8 steps, 8 int_mm launches per int8 layer); the
-     headline request in bf16, int8 and int8_static in turns, twice:
+     headline request in bf16, int8 and int8_static in turns, once:
      s/request, stages (fold: the LoRA fold and the weight quantization),
      peak GiB, K1 500 on sm90, torch._int_mm 50 launches per int8 layer,
      the mean uint8 difference from bf16's; one full-width UNet call of
@@ -151,15 +151,31 @@ Phases, each printing its result; any failure exits non-zero:
  28. SDXL int8_static inside phase 16: calibrated (8 steps), one request
      at 1024x1024 (K1 3500, int_mm 50 per int8 layer).
  29. eval and checkpoint validation (after phase 27, on the set of phase
-     12): `apps.validate.main` at full width (512 px, 50 DDIM steps) with
+     12): `apps.validate.main` at full width (512 px, 40 DDIM steps) with
      every converter stage (each entry ok: no unconsumed key, no zero
      kernel, nothing non-finite), SD1.5 and inpaint, FaceSim and CLIP-T
      (seeded projection heads), `--sweep 4` and `--mode-sweep 4`: the
      seven serving modes each scored, a warm-up and a batch-4 request
-     each, K1 500 a request (375, 335 at DeepCache intervals 2, 3; 400
+     each, K1 400 a request (300, 270 at DeepCache intervals 2, 3; 320
      the inpaint at strength 0.8) on sm90; then `apps.eval_sweep.main
      --synthesize-protocol --limit 8 --batch-size 4` (rows/min; K1 500 a
      batch). Random weights: the scores test the plumbing, not quality.
+ 30. FGID production and the LLaVA-1.5 captioner (after phase 29, on the
+     set of phase 12): LLaVA-1.5-7B at full width (ViT-L/14-336 and
+     Llama-2-7B, 7.06 B parameters, bf16, seeded random weights built on
+     the card) written as an HF llava-hf set of bf16 shards with a
+     synthetic 32000-entry tokenizer.json and loaded back through
+     `LlavaCaptioner.from_pretrained` (every tensor the written bits);
+     the KV cache against an uncached forward in fp32
+     (LLAVA_CACHE_REL_L2); `caption_batch` at batch 1 and 4 in bf16, int8
+     and int8 + kv_quant, 64 new tokens a row (decode steps replayed from
+     one CUDA graph): prefill ms, decode ms/token beside the weight bytes'
+     bound, tokens/s, peak GiB, int_mm 225 launches a model call under
+     int8; then `apps.fgid.main` mask (batch 8) -> caption
+     (--captioner-llava, --batch 4, 512 new tokens) -> faceid -> fuse over
+     8 PNG faces at 512 px and `apps.precompute.main` over the fused
+     JSON_all.json (images/s a stage, the decode route); the tiny fp32
+     LLaVA's ids on the card against the CPU; K1-K6 launched 0 times.
 Phase 9 runs after phase 3, phases 21, 22, 24, 25 and then 10 to 17 after
 phase 5 (before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
 (1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
@@ -167,6 +183,9 @@ Kernel times on the card are `cuda_ms`: CUDA events around calls the host
 queued behind a sleep kernel, so the host's time per call is not counted;
 the perception networks alone are timed by the same events without the
 sleep (on an H100 one iresnet50 call could not be queued behind one).
+Each phase's start goes to standard error and its end, with the seconds
+since the start of the run and its own, to both streams (`phase`); the
+run's JSON carries the seconds of each phase as `phase_s`.
 The last three lines are the kernels' JSON ({"kernels": [...]}), the
 nvidia-smi reading and {"ok": true, "device": {...}}.
 """
@@ -212,6 +231,29 @@ PROMPT = ("portrait photo of a man with a strong face, blue eyes, a sharp "
 
 def log(*args):
     print(*args, flush=True)
+
+
+# seconds of each phase of this run, in order (`phase`)
+PHASE_S = {}
+RUN_START = time.perf_counter()
+
+
+def phase(name: str, fn, *args, **kw):
+    """fn(*args, **kw), its start written to standard error and its end,
+    with the seconds since the run began and its own, to both streams (a
+    run stopped at its time limit shows where it was); the seconds kept in
+    PHASE_S."""
+    def stamp(what):
+        return f"[{time.perf_counter() - RUN_START:.1f} s] {what}"
+    print(stamp(f"start {name}"), file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    seconds = time.perf_counter() - t0
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + seconds
+    line = stamp(f"{name}: {seconds:.1f} s")
+    log(line)
+    print(line, file=sys.stderr, flush=True)
+    return out
 
 
 def nvidia_smi() -> str:
@@ -452,8 +494,19 @@ def kernel_resources():
     cuobjdump = shutil.which("cuobjdump") or (
         str(beside_nvcc) if beside_nvcc.exists() else None)
     cxxfilt = shutil.which("c++filt")
+
+    def sass_dump(item):
+        lib, sources = item
+        return subprocess.run(
+            [cuobjdump, "-sass", str(build.library_path(lib, sources))],
+            capture_output=True, text=True, timeout=300).stdout
+    dumps = {}
+    if cuobjdump:   # one cuobjdump a library, all started together
+        with ThreadPoolExecutor(len(build.LIBRARIES)) as pool:
+            dumps = dict(zip(build.LIBRARIES, pool.map(
+                sass_dump, build.LIBRARIES.items())))
     out = {}
-    for lib, sources in build.LIBRARIES.items():
+    for lib in build.LIBRARIES:
         text = build.load_report(lib) or ""
         kernels = build.ptxas_report(text)
         names = [k["function"] for k in kernels]
@@ -463,9 +516,7 @@ def kernel_resources():
                                    timeout=60).stdout.splitlines()
         sass = {}
         if cuobjdump:
-            dump = subprocess.run(
-                [cuobjdump, "-sass", str(build.library_path(lib, sources))],
-                capture_output=True, text=True, timeout=300).stdout
+            dump = dumps[lib]
             fn = None
             for line in dump.splitlines():
                 found = re.search(r"Function : (\S+)", line)
@@ -2721,7 +2772,9 @@ def sdxl_training_path(bundle, px: int = 1024):
         f"forward {per_call}, of them in blocks remat recomputes "
         f"{recomputed}")
     train0 = {n: p.detach().clone() for n, p in state.trainable.items()}
-    frozen0 = {n: p.detach().to("cpu") for n, p in state.frozen.items()}
+    # on the card: 8.2 GB of bf16, where a host copy and its way back
+    # took seconds a gigabyte
+    frozen0 = {n: p.detach().clone() for n, p in state.frozen.items()}
     step = make_train_step(bundle, NoiseSchedule.create(SchedulerConfig()),
                            config, loss_fn=sdxl_consistentid_loss)
     batch = sdxl_train_batch(bundle, px=px)
@@ -2803,7 +2856,7 @@ def sdxl_training_path(bundle, px: int = 1024):
     still = [n for n, p in state.trainable.items()
              if torch.equal(p, train0[n])]
     changed = [n for n, p in state.frozen.items()
-               if not torch.equal(p, frozen0[n].to(p.device))]
+               if not torch.equal(p, frozen0[n])]
     if still or changed:
         raise AssertionError(f"SDXL training: trainable leaves that did not "
                              f"move {still[:5]}; frozen leaves that did "
@@ -3840,12 +3893,15 @@ def k1_per_request(steps: int, interval: int = 1) -> int:
 
 # K1 launches of `calibrate_int8(num_calib_steps=4)`: one UNet call a step
 CALIBRATION_K1 = 10 * 4
+# steps of every request of the validate CLI's run (--steps): past its
+# merge step (30), so each request runs the merged identity embeddings
+VALIDATE_STEPS = 40
 
 
 def validate_phase(paths, outdir):
     """The eval and checkpoint-validation CLIs on the written full-size set
-    (fp16): `apps.validate.main` at full width (512 px, 50 DDIM steps,
-    merge step 30) with every converter stage (an ONNX copy of the ArcFace
+    (fp16): `apps.validate.main` at full width (512 px, VALIDATE_STEPS
+    DDIM steps, merge step 30) with every converter stage (an ONNX copy of the ArcFace
     pack written for the ONNX reader, the safety checker), the pipeline
     stage (SD1.5 and inpaint, one image each), FaceSim and CLIP-T (seeded
     random (1024, 768) and (1024, 1280) projection heads), `--sweep 4` and
@@ -3853,10 +3909,11 @@ def validate_phase(paths, outdir):
     each); then `apps.eval_sweep.main --synthesize-protocol --limit 8
     --batch-size 4`. Fails unless every converter entry is ok, the report
     is ok, every mode has img_per_min, face_sim and clip_t, K1 ran on sm90
-    exactly its count over the run (500 a text-to-image request, 375 and
-    335 at DeepCache intervals 2 and 3, 400 the inpaint at strength 0.8,
-    40 the calibration) and no other kernel ran. Random weights: the
-    scores test the plumbing, not quality."""
+    exactly its count over the run (at 40 steps 400 a text-to-image
+    request, 300 and 270 at DeepCache intervals 2 and 3, 320 the inpaint
+    at strength 0.8, 40 the calibration; the eval sweep at its 50 steps,
+    500 a batch) and no other kernel ran. Random weights: the scores test
+    the plumbing, not quality."""
     import numpy as np
     import torch
     from consistentid_torch.apps import eval_sweep, validate
@@ -3889,7 +3946,8 @@ def validate_phase(paths, outdir):
             "--scrfd", paths["scrfd_path"],
             "--safety-checker", str(Path(paths["base"]) / "safety_checker"),
             "--clip-projections", proj, "--face", face, "--sweep", "4",
-            "--mode-sweep", "4", "--out", report_path]
+            "--mode-sweep", "4", "--steps", str(VALIDATE_STEPS),
+            "--out", report_path]
     counters = launch_counters() + bn_counters()
     k1 = fa.flash_attention_fwd
 
@@ -3915,10 +3973,11 @@ def validate_phase(paths, outdir):
         raise AssertionError(f"validate: mode sweep {modes}")
     # sd15, inpaint, the 4-row sweep, the calibration, then each mode's
     # warm-up and measured batch
-    want_k1 = (k1_per_request(50) + 10 * int(50 * 0.8)
-               + k1_per_request(50) + CALIBRATION_K1 + sum(
+    steps = VALIDATE_STEPS
+    want_k1 = (k1_per_request(steps) + 10 * int(steps * 0.8)
+               + k1_per_request(steps) + CALIBRATION_K1 + sum(
                    k1_per_request(validate.WARMUP_STEPS, interval)
-                   + k1_per_request(50, interval)
+                   + k1_per_request(steps, interval)
                    for _, _, interval in validate.SERVING_MODES))
     if (launches != [want_k1, 0, 0, 0, 0]
             or k1.launches_by_route["sm90"] != want_k1):
@@ -3927,10 +3986,11 @@ def validate_phase(paths, outdir):
             f"{k1.launches_by_route}), K1 expected {want_k1} on sm90")
     for mode, _, interval in validate.SERVING_MODES:
         rec = modes[mode]
-        log(f"validate mode {mode:>18} (batch 4, 512 px, 50 DDIM steps, one "
-            f"sample): {4 * 60 / rec['img_per_min']:.4f} s/request, img/min "
-            f"{rec['img_per_min']}, face_sim {rec['face_sim']}, clip_t "
-            f"{rec['clip_t']}, K1 {k1_per_request(50, interval)} a request")
+        log(f"validate mode {mode:>18} (batch 4, 512 px, {steps} DDIM steps,"
+            f" one sample): {4 * 60 / rec['img_per_min']:.4f} s/request, "
+            f"img/min {rec['img_per_min']}, face_sim {rec['face_sim']}, "
+            f"clip_t {rec['clip_t']}, K1 {k1_per_request(steps, interval)} a"
+            " request")
     metrics = report["metrics"]
     stage_s = report["seconds"]
     log(f"validate CLI on the 4.18 GiB fp16 set: {seconds:.1f} s in all "
@@ -4081,6 +4141,378 @@ def int8_micro_table(smi: str):
     return rows
 
 
+# ---------------------------------------------------------------- FGID
+
+# phase 30's decode length for the timed captions (the FGID CLI decodes
+# the JAX default, 512)
+LLAVA_NEW_TOKENS = 64
+# bound of the KV-cache check at 7B: the logits of the last prompt position
+# and of 8 cached decode steps against one uncached forward over the same
+# tokens, both in fp32 with TF32 off, where only the order of the sums
+# differs (cuBLAS sums a one-row product in another order than a 700-row
+# one) through 32 layers. In bf16 the same check read 1.6e-2 against a
+# control of 7.9e-2 (PERF.md): too close to tell a cache fault apart. The
+# control, the same logits one position off, must read far above it
+LLAVA_CACHE_REL_L2 = 1e-4
+
+
+def llava_decode_bytes(llama) -> int:
+    """The weight bytes one decode step reads: every decoder tensor but
+    the embedding table (one gathered row per sequence)."""
+    return sum(t.numel() * t.element_size()
+               for n, t in llama.state_dict().items()
+               if not n.startswith("embed_tokens."))
+
+
+def seeded_faces(n: int, size: int = 512, seed: int = 30):
+    """n uint8 faces (noise over a seeded colour field)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [np.clip(rng.randint(40, 200, (1, 1, 3))
+                    + rng.randint(-40, 40, (size, size, 3)), 0,
+                    255).astype(np.uint8) for _ in range(n)]
+
+
+def timed_caption(cap, faces):
+    """cap.caption_batch(faces) (both FGID prompts) on the card: seconds,
+    prefill ms (mean of the two prompts), decode ms a step (the replayed
+    CUDA graph), decoded tokens a row, int_mm launches a decoded token,
+    peak GiB (greedy_generate.events)."""
+    import torch
+    from consistentid_torch.models.llama import greedy_generate
+    from consistentid_torch.ops import quant
+    greedy_generate.events = []
+    torch.cuda.reset_peak_memory_stats()
+    before = quant.int_mm.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        captions = cap.caption_batch(faces)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        events = greedy_generate.events
+    finally:
+        greedy_generate.events = None
+    if len(captions) != len(faces) or not all(
+            isinstance(c, str) and isinstance(d, str) for c, d in captions):
+        raise AssertionError(f"captions {captions!r}")
+    prefill = [e["prefill"][0].elapsed_time(e["prefill"][1]) for e in events]
+    decode = sum(e["decode"][0].elapsed_time(e["decode"][1]) for e in events)
+    steps = sum(e["steps"] for e in events)
+    calls = len(events) + steps           # prefills and decode steps
+    return dict(seconds=seconds, prefill_ms=sum(prefill) / len(prefill),
+                decode_ms_per_token=decode / steps,
+                tokens_per_row=calls // len(events),
+                decode_tokens_per_s=len(faces) * steps / decode * 1e3,
+                tokens_per_s=len(faces) * calls / seconds,
+                int_mm_per_call=(quant.int_mm.launches - before) / calls,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                caption=captions[0][0][:60])
+
+
+def llava_cache_check(cap, face):
+    """Prefill + 8 cached decode steps (batch 1, the caption prompt, each
+    step over the whole cache as greedy_generate runs it) against one
+    uncached forward over the same tokens, on the card in fp32 (an fp32
+    copy of the bf16 decoder, TF32 off, so that only the order of the
+    sums differs): the logits of the last prompt position and of each
+    step by relative L2 (LLAVA_CACHE_REL_L2), the control the same logits
+    one position off."""
+    import torch
+    from consistentid_torch.models.llama import LlamaForCausalLM, init_cache
+    from consistentid_torch.testing import rel_l2, tf32_off
+    bf16 = cap.model.llama
+    with torch.device("meta"):
+        llama = LlamaForCausalLM(bf16.config)
+    llama.load_state_dict({k: v.float() for k, v in
+                           bf16.state_dict().items()}, assign=True)
+    pre, post = cap._encode_parts(cap.caption_prompt)
+    with torch.no_grad(), tf32_off():
+        feats = cap.model.mm(torch.from_numpy(cap._pixels(face)).cuda())
+
+        def embed(ids):
+            return llama.embed_tokens(torch.as_tensor(ids).cuda()[None])
+        prompt = torch.cat([embed(pre), feats.float(), embed(post)], dim=1)
+        n = prompt.shape[1]
+        cache = init_cache(llama.config, 1, n + 8, dtype=torch.float32,
+                           device="cuda")
+        logits, cache = llama(None, cache=cache, attn_len=n,
+                              inputs_embeds=prompt)
+        rows, toks = [logits[:, -1]], []
+        for i in range(8):
+            toks.append(rows[-1].argmax(-1))
+            logits, cache = llama(toks[-1][:, None], cache=cache,
+                                  cache_index=n + i, attn_len=n + 8)
+            rows.append(logits[:, -1])
+        cached = torch.stack(rows, dim=1)
+        full, _ = llama(None, inputs_embeds=torch.cat(
+            [prompt, llama.embed_tokens(torch.stack(toks, dim=1))], dim=1))
+        want = full[:, n - 1:]
+    rel = rel_l2(cached, want)
+    control = rel_l2(cached[:, 1:], want[:, :-1])
+    del llama, cache, full
+    torch.cuda.empty_cache()
+    if not (rel <= LLAVA_CACHE_REL_L2 < control):
+        raise AssertionError(f"LLaVA KV cache: logits relative L2 {rel:.4g}"
+                             f" (limit {LLAVA_CACHE_REL_L2}), control one "
+                             f"position off {control:.4g}")
+    log(f"LLaVA KV cache (fp32 copy, TF32 off, {n} prompt tokens + 8 "
+        f"steps): logits relative L2 {rel:.3g} against one uncached "
+        f"forward (limit {LLAVA_CACHE_REL_L2}); control one position off "
+        f"{control:.3g}")
+    return dict(prompt_tokens=n, rel_l2=rel, control_rel_l2=control)
+
+
+def write_llava_set(model, set_dir, shard_bytes: int = 2 << 30):
+    """The model as an HF llava-hf set (modern keys) of bf16 safetensors
+    shards with an index, each tensor copied to the host on its own, and
+    the synthetic 32000-entry tokenizer: (bytes, seconds)."""
+    from consistentid_torch.io.export_backbones import llava_to_hf
+    from consistentid_torch.io.safetensors_reader import \
+        write_safetensors_torch
+    from consistentid_torch.testing import write_llama_tokenizer
+    t0 = time.perf_counter()
+    hf = llava_to_hf(model.state_dict(), model.config)
+    shards, size = [[]], 0
+    for key in sorted(hf):
+        nbytes = hf[key].numel() * hf[key].element_size()
+        if shards[-1] and size + nbytes > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(key)
+        size += nbytes
+    weight_map, total = {}, 0
+    for i, keys in enumerate(shards):
+        name = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_safetensors_torch(str(Path(set_dir, name)),
+                                         {k: hf[k] for k in keys})
+        weight_map.update(dict.fromkeys(keys, name))
+    Path(set_dir, "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    write_llama_tokenizer(str(set_dir))
+    return total, time.perf_counter() - t0
+
+
+def llava_phase(set_dir, smi: str):
+    """LLaVA-1.5-7B at full width (LlavaConfig(): ViT-L/14-336, 24
+    layers; Llama-2-7B, 32 layers), bf16, random weights from a seeded
+    generator built on the card, written as an HF llava-hf set and loaded
+    back through `LlavaCaptioner.from_pretrained` (every tensor the
+    written bits); the KV-cache check; then `caption_batch` at batch 1
+    and 4 in bf16, int8 and int8 + kv_quant, LLAVA_NEW_TOKENS a row:
+    prefill ms, decode ms/token beside its bound (the decoder's weight
+    bytes a step over 3.35 TB/s), tokens/s, peak GiB, int_mm launches a
+    model call (7 a layer + lm_head under int8)."""
+    import torch
+    from consistentid_torch.conditioning.captioner import LlavaCaptioner
+    from consistentid_torch.core.config import LlavaConfig
+    from consistentid_torch.models.llava import random_llava
+
+    cfg = LlavaConfig()
+    t0 = time.perf_counter()
+    model = random_llava(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    build_s = time.perf_counter() - t0
+    nbytes, write_s = write_llava_set(model, set_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf16 = LlavaCaptioner.from_pretrained(str(set_dir), device="cuda",
+                                          max_new_tokens=LLAVA_NEW_TOKENS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    src, got = model.state_dict(), bf16.model.state_dict()
+    bad = [k for k in src if not torch.equal(src[k], got[k])]
+    if set(src) != set(got) or bad:
+        raise AssertionError(f"LLaVA set: loaded tensors differ {bad[:5]}")
+    del model, src, got
+    torch.cuda.empty_cache()
+    log(f"LLaVA-1.5-7B: {n_params / 1e9:.3f} B params bf16 built on the "
+        f"card in {build_s:.1f} s; the llava-hf set {nbytes} bytes "
+        f"({nbytes / 2 ** 30:.2f} GiB, bf16 shards) written in "
+        f"{write_s:.1f} s, loaded by from_pretrained in {load_s:.2f} s, "
+        f"every tensor the written bits")
+    int8 = LlavaCaptioner(bf16.model, bf16.tokenizer, quant="int8",
+                          max_new_tokens=LLAVA_NEW_TOKENS)
+    int8_kv = LlavaCaptioner(int8.model, bf16.tokenizer, quant="int8",
+                             kv_quant=True, max_new_tokens=LLAVA_NEW_TOKENS)
+    faces = seeded_faces(4)
+    cache = llava_cache_check(bf16, faces[0])
+    modes = {"bf16": bf16, "int8": int8, "int8_kv": int8_kv}
+    runs = {}
+    for mode, cap in modes.items():
+        bound_ms = llava_decode_bytes(cap.model.llama) / HBM_BYTES_PER_S * 1e3
+        LlavaCaptioner(cap.model, cap.tokenizer, max_new_tokens=4,
+                       kv_quant=cap.kv_quant).caption_batch(faces[:1])
+        for b in (1, 4):
+            r = timed_caption(cap, faces[:b])
+            r["decode_bound_ms"] = bound_ms
+            want_mm = (7 * cfg.text.num_layers + 1) if mode != "bf16" else 0
+            if r["int_mm_per_call"] != want_mm:
+                raise AssertionError(f"LLaVA {mode}: int_mm launches a call "
+                                     f"{r['int_mm_per_call']}, expected "
+                                     f"{want_mm}")
+            runs[f"{mode}_b{b}"] = r
+            log(f"LLaVA {mode} batch {b}, {r['tokens_per_row']} tokens a "
+                f"row, both prompts: {r['seconds']:.3f} s, prefill "
+                f"{r['prefill_ms']:.2f} ms, decode "
+                f"{r['decode_ms_per_token']:.3f} ms/token (bound "
+                f"{bound_ms:.3f} ms: weight bytes over 3.35 TB/s), "
+                f"{r['decode_tokens_per_s']:.1f} decode tokens/s, "
+                f"{r['tokens_per_s']:.1f} tokens/s end to end, peak "
+                f"{r['peak_gib']:.2f} GiB, int_mm {r['int_mm_per_call']:g} a"
+                f" call; caption {r['caption']!r} ({smi})")
+    del modes, bf16, int8, int8_kv, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params_b=n_params / 1e9, set_bytes=nbytes, write_s=write_s,
+                load_s=load_s, build_s=build_s, cache_check=cache, runs=runs)
+
+
+def fgid_cli_phase(paths, outdir, set_dir):
+    """`apps.fgid.main` end to end on the card over 8 PNG faces at 512 px:
+    mask (BiSeNet of the phase-12 set, batch 8), caption with the LLaVA
+    set (--batch 4, the JAX default of 512 new tokens), faceid (the
+    phase-12 ArcFace pack), fuse; then `apps.precompute.main` over the
+    fused JSON_all.json. Images/s a stage (caption with its load), the
+    decode route (native or numpy, with the compiler's last error line
+    if the native loader did not build)."""
+    import numpy as np
+    import torch
+    from consistentid_torch.apps import fgid
+    from consistentid_torch.apps import precompute as precompute_cli
+    from consistentid_torch.io import native_loader
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    root = Path(outdir, "fgid")
+    images, out = root / "images", root / "out"
+    images.mkdir(parents=True)
+    faces = seeded_faces(8, seed=31)
+    for i, face in enumerate(faces):
+        (images / f"face{i}.png").write_bytes(encode_png(face))
+    stages = {
+        "mask": ["mask", "--bisenet", paths["bisenet_path"],
+                 "--batch-size", "8"],
+        "caption": ["caption", "--captioner-llava", str(set_dir),
+                    "--batch", "4"],
+        "faceid": ["faceid", "--arcface", paths["arcface_path"]],
+        "fuse": ["fuse"]}
+    seconds = {}
+    for stage, argv in stages.items():
+        io = ["--out", str(out)] + ([] if stage == "fuse"
+                                    else ["--images", str(images)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fgid.main(argv[:1] + io + argv[1:]) != 0:
+            raise AssertionError(f"apps.fgid {stage} failed")
+        torch.cuda.synchronize()
+        seconds[stage] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    manifest = json.loads((out / "JSON_all.json").read_text())
+    keys = {"image_path", "parsing_mask_path", "faceid_path", "vqa_llva",
+            "vqa_llva_more_face_detail"}
+    if sorted(manifest) != [f"face{i}" for i in range(8)] or any(
+            set(e) != keys for e in manifest.values()):
+        raise AssertionError(f"JSON_all.json: {manifest}")
+    for entry in manifest.values():
+        labels = decode_png((out / entry["parsing_mask_path"]).read_bytes())
+        emb = np.fromfile(out / entry["faceid_path"], np.float32)
+        if labels.shape != (512, 512, 1) or labels.max() >= 19 or \
+                emb.shape != (512,) or abs(np.linalg.norm(emb) - 1) > 1e-3:
+            raise AssertionError(f"fgid outputs {entry}: labels "
+                                 f"{labels.shape}, embedding {emb.shape}")
+    enc = root / "encoded"
+    t0 = time.perf_counter()
+    if precompute_cli.main([
+            "--base", paths["base"],
+            "--image-encoder", paths["image_encoder_path"],
+            "--tokenizer", str(Path(paths["base"], "tokenizer")),
+            "--manifest", str(out / "JSON_all.json"), "--data-root",
+            str(out), "--out", str(enc), "--batch-size", "4"]) != 0:
+        raise AssertionError("apps.precompute on the fused manifest failed")
+    seconds["precompute"] = time.perf_counter() - t0
+    n_encoded = len(json.loads((enc / "encoded_manifest.json")
+                               .read_text())["samples"])
+    if n_encoded != 8:
+        raise AssertionError(f"precompute encoded {n_encoded} of 8 entries")
+    route = native_loader.route()
+    per_s = {k: 8 / v for k, v in seconds.items()}
+    log(f"apps.fgid on the card, 8 faces at 512 px: seconds "
+        f"{ {k: round(v, 2) for k, v in seconds.items()} }, images/s "
+        f"{ {k: round(v, 2) for k, v in per_s.items()} } (caption with its "
+        f"load, 512 new tokens a row at batch 4); decode route {route}; "
+        f"precompute encoded {n_encoded} entries of the fused manifest")
+    shutil.rmtree(root)
+    return dict(seconds=seconds, images_per_s=per_s, route=route,
+                build_error=native_loader.BUILD_ERROR, encoded=n_encoded)
+
+
+def tiny_llava_check():
+    """The tiny fp32 LLaVA's caption ids (batch 2, both FGID prompts, 16
+    tokens) on the card against the CPU, TF32 off: equal."""
+    import copy
+
+    import numpy as np
+    import torch
+    from consistentid_torch.conditioning.captioner import (CAPTION_PROMPT,
+                                                           DETAIL_PROMPT,
+                                                           LlavaCaptioner)
+    from consistentid_torch.conditioning.llama_tokenizer import \
+        LlamaTokenizer
+    from consistentid_torch.models.llava import random_llava
+    from consistentid_torch.testing import (synthetic_llama_tokenizer_json,
+                                            tf32_off, tiny_llava_config)
+    cpu = random_llava(tiny_llava_config(), seed=0).eval()
+    card = copy.deepcopy(cpu).cuda()
+    tok = LlamaTokenizer(synthetic_llama_tokenizer_json(512))
+    faces = [f[:40 + 8 * i, :36] for i, f in
+             enumerate(seeded_faces(2, size=64, seed=32))]
+    with tf32_off():
+        ids = {dev: [LlavaCaptioner(m, tok, max_new_tokens=16)
+                     .generate_ids(faces, p)
+                     for p in (CAPTION_PROMPT, DETAIL_PROMPT)]
+               for dev, m in (("cpu", cpu), ("cuda", card))}
+    same = all(np.array_equal(a, b) for a, b in zip(ids["cpu"],
+                                                    ids["cuda"]))
+    if not same:
+        raise AssertionError(f"tiny LLaVA ids card {ids['cuda']} != CPU "
+                             f"{ids['cpu']}")
+    log(f"tiny LLaVA fp32 (TF32 off): caption ids on the card equal the "
+        f"CPU's, 2 images x 2 prompts x 16 tokens")
+    return dict(equal=same)
+
+
+def fgid_phase(paths, outdir, smi: str):
+    """Phase 30: LLaVA-1.5-7B on the card (`llava_phase`), `apps.fgid`
+    end to end with `apps.precompute` over its manifest
+    (`fgid_cli_phase`), the tiny LLaVA card against CPU; K1-K6 launched
+    0 times over it."""
+    import torch
+    from consistentid_torch.ops import flash_attention as fa
+    counters = launch_counters() + bn_counters()
+    fa.reset_launches(*counters)
+    set_dir = Path(outdir, "llava-1.5-7b-hf")
+    set_dir.mkdir()
+    t0 = time.perf_counter()
+    try:
+        llava = llava_phase(set_dir, smi)
+        cli = fgid_cli_phase(paths, outdir, set_dir)
+    finally:
+        shutil.rmtree(set_dir, ignore_errors=True)
+    tiny = tiny_llava_check()
+    launches = [w.launches for w in counters]
+    if any(launches):
+        raise AssertionError(f"phase 30: K1, K2, K3 + K4, K5, K6 launched "
+                             f"{launches}, expected none")
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"phase 30 (LLaVA-1.5-7B, apps.fgid, precompute): {seconds:.1f} s,"
+        f" K1-K6 launches {launches}")
+    return dict(llava=llava, cli=cli, tiny=tiny, launches=launches,
+                seconds=seconds)
+
+
 def main() -> int:
     try:
         import torch
@@ -4104,64 +4536,75 @@ def main() -> int:
 
     from consistentid_torch.ops import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(build.LIBRARIES) + 1) as pool:  # nvcc each
-        variant = pool.submit(build_fp32_dq_variant)
-        list(pool.map(build.load_library, build.LIBRARIES))
-        fp32_dq = variant.result()
+
+    def build_all():
+        with ThreadPoolExecutor(len(build.LIBRARIES) + 1) as pool:
+            variant = pool.submit(build_fp32_dq_variant)   # nvcc each
+            list(pool.map(build.load_library, build.LIBRARIES))
+            return variant.result()
+    fp32_dq = phase("build", build_all)
     sources = [s for srcs in build.LIBRARIES.values() for s in srcs]
     log(f"build: {', '.join(sources)} -> {build.BUILD_DIR.name}/ in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel: "
         f"{build.build_seconds or 'cached'})")
-    resources = kernel_resources()
+    resources = phase("kernel_resources", kernel_resources)
 
-    k1_rows = kernel_phase()
-    train_rows = train_kernel_phase()
-    dq_order = dq_order_phase(fp32_dq)
-    bn_rows, bn_launches = bn_kernel_phase()
-    bundle, main = main_path()
-    path = unet_path_check(bundle)
-    profile = profile_unet(bundle)
-    init_paths = init_image_phase(bundle)
-    deepcache = deepcache_phase(bundle, rounds=1)
-    int8 = int8_headline_phase(bundle, smi)
-    int8["micro_table"] = int8_micro_table(smi)
-    hooks, perception = perception_phase()
-    photo = photo_generate(bundle, *hooks)
+    k1_rows = phase("K1 kernel checks", kernel_phase)
+    train_rows = phase("K2, K3 + K4 kernel checks", train_kernel_phase)
+    dq_order = phase("dq order", dq_order_phase, fp32_dq)
+    bn_rows, bn_launches = phase("K5, K6 kernel checks", bn_kernel_phase)
+    bundle, main = phase("main path", main_path)
+    path = phase("UNet path check", unet_path_check, bundle)
+    profile = phase("UNet profile", profile_unet, bundle)
+    init_paths = phase("init-image paths", init_image_phase, bundle)
+    deepcache = phase("DeepCache", deepcache_phase, bundle, rounds=1)
+    int8 = phase("int8 headline", int8_headline_phase, bundle, smi,
+                 rounds=1)
+    int8["micro_table"] = phase("int8 micro table", int8_micro_table, smi)
+    hooks, perception = phase("perception", perception_phase)
+    photo = phase("generate from the photo", photo_generate, bundle, *hooks)
     tmp = tempfile.mkdtemp(prefix="cid_checkpoints_")
     try:
-        paths, written = write_checkpoint_set(bundle, hooks, tmp)
-        loaded = {**written, **load_phase(bundle, hooks, paths)}
+        paths, written = phase("write the SD1.5 set", write_checkpoint_set,
+                               bundle, hooks, tmp)
+        loaded = {**written, **phase("load the SD1.5 set", load_phase,
+                                     bundle, hooks, paths)}
         del hooks
-        infer_pipe, inferred = infer_phase(paths, tmp)
-        infer_variants = infer_variants_phase(paths, tmp)
-        int8["infer"] = infer_int8_phase(paths, tmp)
-        samplers = samplers_phase(infer_pipe)
-        served = serve_phase(infer_pipe)
+        infer_pipe, inferred = phase("infer CLI", infer_phase, paths, tmp)
+        infer_variants = phase("infer variants", infer_variants_phase,
+                               paths, tmp)
+        int8["infer"] = phase("infer int8", infer_int8_phase, paths, tmp)
+        samplers = phase("samplers", samplers_phase, infer_pipe)
+        served = phase("serve", serve_phase, infer_pipe)
         del infer_pipe
         gc.collect()  # the server's handler objects hold it in cycles
         torch.cuda.empty_cache()
-        int8["serve"] = serve_int8_phase(paths, tmp)
+        int8["serve"] = phase("serve int8", serve_int8_phase, paths, tmp)
         gc.collect()
         torch.cuda.empty_cache()
-        validated = validate_phase(paths, tmp)
-        cli = train_cli_phase(paths, tmp)
-        sdxl_bundle, sdxl = sdxl_path()
+        validated = phase("validate, eval_sweep", validate_phase, paths, tmp)
+        fgid = phase("LLaVA, apps.fgid", fgid_phase, paths, tmp, smi)
+        cli = phase("train CLIs", train_cli_phase, paths, tmp)
+        sdxl_bundle, sdxl = phase("SDXL", sdxl_path)
         int8["sdxl_int8_static"] = sdxl.pop("int8_static")
-        sdxl_infer = sdxl_infer_phase(sdxl_bundle, paths, tmp)
-        sdxl_train = sdxl_training_path(sdxl_bundle)
+        sdxl_infer = phase("SDXL set, infer CLI", sdxl_infer_phase,
+                           sdxl_bundle, paths, tmp)
+        sdxl_train = phase("SDXL training", sdxl_training_path, sdxl_bundle)
         del sdxl_bundle
         gc.collect()
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    state, train = training_path(bundle)
-    train_profile = profile_train_step(bundle, state)
-    train_path = train_unet_path_check(bundle, state)
-    remat = sd15_remat_phase(bundle, state)
+    state, train = phase("training path", training_path, bundle)
+    train_profile = phase("train step profile", profile_train_step, bundle,
+                          state)
+    train_path = phase("training UNet path check", train_unet_path_check,
+                       bundle, state)
+    remat = phase("remat", sd15_remat_phase, bundle, state)
     del bundle, state
     torch.cuda.empty_cache()
-    tiny = tiny_reference_check()
-    tiny_train = tiny_train_check()
+    tiny = phase("tiny card vs CPU", tiny_reference_check)
+    tiny_train = phase("tiny train card vs CPU", tiny_train_check)
 
     def entry(name, source, replaces, launches, rows, library):
         top = rows[0]
@@ -4299,6 +4742,8 @@ def main() -> int:
         kernels.append({**entry(label, bn_src, f"{bn_jax}:{line}", n, rows,
                                 lib),
                         "main_path_launches": on_paths, "note": note})
+    for entry, n in zip(kernels, fgid["launches"]):
+        entry["launches_in_fgid_phase"] = n     # phase 30: none
     log(json.dumps({"main_path": main, "unet_path_check": path,
                     "init_image_paths": init_paths, "deepcache": deepcache,
                     "int8": int8,
@@ -4306,7 +4751,7 @@ def main() -> int:
                     "perception": perception, "photo_generate": photo,
                     "dq_order": dq_order, "load": loaded, "infer": inferred,
                     "samplers": samplers, "serve": served, "sdxl": sdxl,
-                    "validate": validated,
+                    "validate": validated, "fgid": fgid,
                     "sdxl_infer": sdxl_infer,
                     "tiny_card_vs_cpu": tiny, "unet_profile": profile,
                     "training_path": train, "train_profile": train_profile,
@@ -4315,6 +4760,7 @@ def main() -> int:
                     "train_cli": cli, "sdxl_training": sdxl_train,
                     "sd15_remat": remat,
                     "kernel_resources": resources,
+                    "phase_s": PHASE_S,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

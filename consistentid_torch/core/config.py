@@ -2,7 +2,8 @@
 
 Copies of the JAX package's core/config.py entries that the SD1.5 and SDXL
 text-to-image and training paths read, with the same field names and
-defaults, so a config carries across field by field. Fields the port
+defaults, so a config carries across field by field (the LLaVA-1.5
+captioner's Llama and LLaVA configs too). Fields the port
 does not read yet (DeepCache, prediction types and timestep spacings other
 than epsilon/leading, the adapter's duplicated LoRA and scale defaults) are
 left out.
@@ -133,6 +134,46 @@ class CLIPVisionConfig:
     @property
     def num_tokens(self) -> int:  # cls + patches
         return 1 + (self.image_size // self.patch_size) ** 2
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    """Llama decoder (HF `LlamaConfig` semantics). Defaults = Llama-2-7b, the
+    language model inside LLaVA-1.5, which the reference drives for FGID
+    captions (data/FGID_caption.py:20)."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32              # < num_heads => grouped-query attn
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclass(frozen=True)
+class LlavaConfig:
+    """LLaVA-1.5 captioner: CLIP vision tower (penultimate features, CLS
+    dropped) -> 2-layer GELU projector -> Llama. Defaults = llava-v1.5-7b
+    (ViT-L/14-336 tower), the model data/FGID_caption.py:20 loads."""
+
+    vision: CLIPVisionConfig = CLIPVisionConfig(
+        image_size=336, patch_size=14, hidden_size=1024,
+        intermediate_size=4096, num_layers=24, num_heads=16,
+        hidden_act="quick_gelu")
+    text: LlamaConfig = LlamaConfig()
+    image_token_id: int = 32000         # HF llava convention: <image> id
+
+    @property
+    def num_image_tokens(self) -> int:  # patches only (CLS dropped)
+        return (self.vision.image_size // self.vision.patch_size) ** 2
 
 
 @dataclass(frozen=True)

@@ -90,6 +90,6 @@ def export_adapter_numpy(bundle) -> Dict[str, np.ndarray]:
             if isinstance(val, dict):
                 walk(val, f"{prefix}{key}/")
             else:
-                out[f"{prefix}{key}"] = val
+                out[f"{prefix}{key}"] = np.ascontiguousarray(val)
     walk(params, "")
     return out

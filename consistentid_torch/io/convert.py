@@ -48,8 +48,13 @@ def _join(prefix: str, name: str) -> str:
 
 # -- primitive layer converters ---------------------------------------------
 
+# The kernels are transposed views of the read arrays, not copies: the
+# loaders (params_from_jax) transpose them back, which then gives the read
+# array's own contiguous layout, so a checkpoint is never copied through a
+# strided transpose on the host (numpy's runs at a fraction of memcpy).
+
 def linear(sd: Mapping[str, np.ndarray], prefix: str, bias: bool = True):
-    p = {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T)}
+    p = {"kernel": sd[f"{prefix}.weight"].T}
     if bias:
         p["bias"] = sd[f"{prefix}.bias"]
     return p
@@ -65,7 +70,7 @@ def groupnorm(sd, prefix):
 
 def conv(sd: Mapping[str, np.ndarray], prefix: str, bias: bool = True):
     # torch conv weight (O, I, kh, kw) -> flax (kh, kw, I, O)
-    p = {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].transpose(2, 3, 1, 0))}
+    p = {"kernel": sd[f"{prefix}.weight"].transpose(2, 3, 1, 0)}
     if bias:
         p["bias"] = sd[f"{prefix}.bias"]
     return p

@@ -1,22 +1,29 @@
 """HF-layout state dicts of the frozen backbones -> flax-shaped trees.
 
-A copy of the JAX package's io/convert_backbones.py (without the llama and
-llava converters): diffusers UNet2DConditionModel / AutoencoderKL and
-transformers CLIP state dicts (the checkpoints the reference loads at
-pipline_StableDiffusion_ConsistentID.py:41-57 and train.py:112-117) onto
-the trees of the JAX package's models/unet.py, models/vae.py,
-models/clip.py, which `io.from_jax.params_from_jax` carries into the port's
-modules. The inverse maps are in io/export_backbones.py.
+A copy of the JAX package's io/convert_backbones.py: diffusers
+UNet2DConditionModel / AutoencoderKL and transformers CLIP state dicts (the
+checkpoints the reference loads at
+pipline_StableDiffusion_ConsistentID.py:41-57 and train.py:112-117), and
+the HF Llama / LLaVA-1.5 state dicts of the FGID captioner
+(data/FGID_caption.py:20), onto the trees of the JAX package's
+models/unet.py, models/vae.py, models/clip.py, models/llama.py and
+models/llava.py, which `io.from_jax.params_from_jax` carries into the
+port's modules. The inverse maps are in io/export_backbones.py.
 
-All functions take dict[str, np.ndarray] (io.safetensors_reader output).
+All tree converters take dict[str, np.ndarray] (io.safetensors_reader
+output). `llava_names_from_hf` maps the same HF keys straight onto the
+port's `models.llava.Llava` state-dict names, for a loader that copies
+tensors shard by shard without a tree (the two agree: a test holds
+`params_from_jax(llava_from_hf(sd))` to it).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping
 
 import numpy as np
 
-from ..core.config import CLIPTextConfig, CLIPVisionConfig, UNetConfig, VAEConfig
+from ..core.config import (CLIPTextConfig, CLIPVisionConfig, LlamaConfig,
+                           LlavaConfig, UNetConfig, VAEConfig)
 from .convert import conv, layernorm, linear
 
 
@@ -249,3 +256,131 @@ def safety_checker_from_hf(sd: Mapping[str, np.ndarray],
         "concept_embeds_weights": sd["concept_embeds_weights"],
         "special_care_embeds_weights": sd["special_care_embeds_weights"],
     }
+
+
+def _llama_layer(sd, p):
+    return {
+        "input_layernorm": {"weight": sd[f"{p}.input_layernorm.weight"]},
+        "self_attn": {
+            "q_proj": linear(sd, f"{p}.self_attn.q_proj", bias=False),
+            "k_proj": linear(sd, f"{p}.self_attn.k_proj", bias=False),
+            "v_proj": linear(sd, f"{p}.self_attn.v_proj", bias=False),
+            "o_proj": linear(sd, f"{p}.self_attn.o_proj", bias=False),
+        },
+        "post_attention_layernorm": {
+            "weight": sd[f"{p}.post_attention_layernorm.weight"]},
+        "mlp": {
+            "gate_proj": linear(sd, f"{p}.mlp.gate_proj", bias=False),
+            "up_proj": linear(sd, f"{p}.mlp.up_proj", bias=False),
+            "down_proj": linear(sd, f"{p}.mlp.down_proj", bias=False),
+        },
+    }
+
+
+def llama_from_hf(sd: Mapping[str, np.ndarray], cfg: LlamaConfig) -> Dict:
+    """HF LlamaForCausalLM state dict -> the JAX LlamaForCausalLM tree (the
+    LLaVA-1.5 language model, data/FGID_caption.py:20)."""
+    pre = "model." if any(k.startswith("model.") for k in sd) else ""
+    out: Dict = {
+        "embed_tokens": {"embedding": sd[f"{pre}embed_tokens.weight"]},
+        "norm": {"weight": sd[f"{pre}norm.weight"]},
+    }
+    for i in range(cfg.num_layers):
+        out[f"layers_{i}"] = _llama_layer(sd, f"{pre}layers.{i}")
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = linear(sd, "lm_head", bias=False)
+    return out
+
+
+def _llava_prefixes(keys: Iterable[str]):
+    """(vision tower, projector, language model) key prefixes of the modern
+    `model.language_model.*` or the legacy `language_model.model.*` HF
+    LLaVA layout."""
+    modern = any(k.startswith("model.language_model.") for k in keys)
+    if modern:
+        return ("model.vision_tower.", "model.multi_modal_projector.",
+                "model.language_model.")
+    return "vision_tower.", "multi_modal_projector.", "language_model.model."
+
+
+_LM_HEAD_KEYS = ("lm_head.weight", "language_model.lm_head.weight")
+
+
+def llava_from_hf(sd: Mapping[str, np.ndarray], cfg: LlavaConfig) -> Dict:
+    """HF LlavaForConditionalGeneration state dict -> the JAX
+    {"mm": LlavaModel, "llama": LlamaForCausalLM} tree of models/llava.py,
+    from the modern or the legacy HF key layout."""
+    vt, mm, lm = _llava_prefixes(sd)
+    vision_sd = {k[len(vt):]: sd[k] for k in sd if k.startswith(vt)}
+    llama_sd = {"model." + k[len(lm):]: sd[k] for k in sd
+                if k.startswith(lm)}
+    for head_key in _LM_HEAD_KEYS:
+        if head_key in sd:
+            llama_sd["lm_head.weight"] = sd[head_key]
+            break
+    return {
+        "mm": {
+            "vision_tower": clip_vision_from_hf(vision_sd, cfg.vision),
+            "multi_modal_projector": {
+                "linear_1": linear(sd, f"{mm}linear_1"),
+                "linear_2": linear(sd, f"{mm}linear_2"),
+            },
+        },
+        "llama": llama_from_hf(llama_sd, cfg.text),
+    }
+
+
+_CLIP_LAYER_LEAVES = (
+    "layer_norm1.weight", "layer_norm1.bias", "layer_norm2.weight",
+    "layer_norm2.bias", "self_attn.q_proj.weight", "self_attn.q_proj.bias",
+    "self_attn.k_proj.weight", "self_attn.k_proj.bias",
+    "self_attn.v_proj.weight", "self_attn.v_proj.bias",
+    "self_attn.out_proj.weight", "self_attn.out_proj.bias")
+_LLAMA_LAYER_LEAVES = (
+    "input_layernorm.weight", "post_attention_layernorm.weight",
+    "self_attn.q_proj.weight", "self_attn.k_proj.weight",
+    "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+    "mlp.gate_proj.weight", "mlp.up_proj.weight", "mlp.down_proj.weight")
+
+
+def llava_names_from_hf(keys: Iterable[str],
+                        cfg: LlavaConfig) -> Dict[str, str]:
+    """{port `Llava` state-dict name: HF key} for a LLaVA-1.5 checkpoint
+    with these keys (either layout), every name the float model has. The
+    tensors need no transpose: both sides are torch layouts (a flattened
+    vision class embedding aside, reshaped by the loader)."""
+    keys = list(keys)
+    vt, mm, lm = _llava_prefixes(keys)
+    if any(k.startswith(vt + "vision_model.") for k in keys):
+        vt += "vision_model."
+    names = {
+        "mm.vision_tower.patch_embedding.weight":
+            f"{vt}embeddings.patch_embedding.weight",
+        "mm.vision_tower.class_embedding": f"{vt}embeddings.class_embedding",
+        "mm.vision_tower.position_embedding":
+            f"{vt}embeddings.position_embedding.weight",
+        "llama.embed_tokens.weight": f"{lm}embed_tokens.weight",
+        "llama.norm.weight": f"{lm}norm.weight",
+    }
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        for leaf in ("weight", "bias"):
+            names[f"mm.vision_tower.{ln}.{leaf}"] = f"{vt}{ln}.{leaf}"
+    for i in range(cfg.vision.num_layers):
+        for leaf in _CLIP_LAYER_LEAVES:
+            names[f"mm.vision_tower.layers_{i}.{leaf}"] = \
+                f"{vt}encoder.layers.{i}.{leaf}"
+        for fc in ("fc1", "fc2"):
+            for leaf in ("weight", "bias"):
+                names[f"mm.vision_tower.layers_{i}.{fc}.{leaf}"] = \
+                    f"{vt}encoder.layers.{i}.mlp.{fc}.{leaf}"
+    for lin in ("linear_1", "linear_2"):
+        for leaf in ("weight", "bias"):
+            names[f"mm.multi_modal_projector.{lin}.{leaf}"] = \
+                f"{mm}{lin}.{leaf}"
+    for i in range(cfg.text.num_layers):
+        for leaf in _LLAMA_LAYER_LEAVES:
+            names[f"llama.layers_{i}.{leaf}"] = f"{lm}layers.{i}.{leaf}"
+    if not cfg.text.tie_word_embeddings:
+        head = [k for k in _LM_HEAD_KEYS if k in keys]
+        names["llama.lm_head.weight"] = head[0] if head else "lm_head.weight"
+    return names

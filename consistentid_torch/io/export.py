@@ -57,6 +57,13 @@ def write_reference_checkpoints(
     leaves the image encoder out (a set that shares another's), and
     consistentid=False the adapter checkpoint (a base dump alone)."""
     sdxl = bundle.unet_config.is_sdxl
+    # the trees in the written dtype, cast on the modules' devices (the
+    # same values as casting the fp32 trees: round to nearest even)
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+
+    def tree(module, **kw):
+        return tree_from_module(module, dtype=tdtype, **kw)
+
     name = "sdxl" if sdxl else "sd15"
     base = os.path.join(outdir, name)
     paths = {"base": base}
@@ -74,34 +81,35 @@ def write_reference_checkpoints(
 
         def tensors(d):
             return {k: tensors(v) if isinstance(v, Mapping)
-                    else torch.from_numpy(np.asarray(v).astype(dtype))
+                    else torch.from_numpy(np.ascontiguousarray(
+                        np.asarray(v).astype(dtype)))
                     for k, v in d.items()}
         path = os.path.join(outdir, rel)
         torch.save(tensors(sd), path)
         written += os.path.getsize(path)
         return path
 
-    unet, _ = tree_from_module(bundle.unet)
+    unet, _ = tree(bundle.unet)
     save_st(f"{name}/unet/diffusion_pytorch_model.safetensors",
             unet_to_diffusers(unet, bundle.unet_config))
-    vae, _ = tree_from_module(bundle.vae)
+    vae, _ = tree(bundle.vae)
     save_st(f"{name}/vae/diffusion_pytorch_model.safetensors",
             vae_to_diffusers(vae, bundle.vae_config))
     del vae
     save_st(f"{name}/text_encoder/model.safetensors", clip_text_to_hf(
-        tree_from_module(bundle.text_encoder)[0], bundle.text_config))
+        tree(bundle.text_encoder)[0], bundle.text_config))
     if sdxl:
         save_st(f"{name}/text_encoder_2/model.safetensors", clip_text_to_hf(
-            tree_from_module(bundle.text_encoder_2)[0],
+            tree(bundle.text_encoder_2)[0],
             bundle.text_config_2))
     if image_encoder:
         paths["image_encoder_path"] = save_st(
             "image_encoder.safetensors", clip_vision_to_hf(
-                tree_from_module(bundle.image_encoder)[0],
+                tree(bundle.image_encoder)[0],
                 bundle.vision_config))
     if consistentid:
-        adapters = {"unet": unet, "proj": tree_from_module(bundle.proj)[0],
-                    "facial_encoder": tree_from_module(
+        adapters = {"unet": unet, "proj": tree(bundle.proj)[0],
+                    "facial_encoder": tree(
                         bundle.facial_encoder)[0]}
         paths["consistentid_path"] = save_torch(
             "ConsistentID_SDXL-v1.bin" if sdxl else "ConsistentID-v1.bin",
@@ -115,13 +123,13 @@ def write_reference_checkpoints(
 
     if parser is not None:
         paths["bisenet_path"] = save_torch(
-            "face_parsing.pth", bisenet_to_torch(*tree_from_module(parser)))
+            "face_parsing.pth", bisenet_to_torch(*tree(parser)))
     if embedder is not None:
         from ..models.arcface import iresnet_arch_from_params
         layers, _, input_size = iresnet_arch_from_params(
             embedder.state_dict())
         channels = embedder.bn2.num_features
-        params, stats = tree_from_module(embedder,
+        params, stats = tree(embedder,
                                          flatten_nhwc={"fc": channels})
         paths["arcface_path"] = save_torch(
             "arcface.pt", iresnet_to_torch(params, stats, layers=layers,
@@ -129,13 +137,13 @@ def write_reference_checkpoints(
     if detector is not None:
         path = os.path.join(outdir, "scrfd.onnx")
         write_onnx_initializers(path, _cast(scrfd_to_torch(
-            *tree_from_module(detector), detector.cfg), dtype))
+            *tree(detector), detector.cfg), dtype))
         written += os.path.getsize(path)
         paths["scrfd_path"] = path
     if safety_checker is not None:
         vc = safety_checker.vision_config
         save_st(f"{name}/safety_checker/model.safetensors",
-                safety_checker_to_hf(tree_from_module(safety_checker)[0],
+                safety_checker_to_hf(tree(safety_checker)[0],
                                      vc))
         with open(os.path.join(base, "safety_checker", "config.json"),
                   "w") as f:

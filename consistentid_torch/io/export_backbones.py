@@ -4,14 +4,16 @@ A copy of the JAX package's io/export_backbones.py: the maps of
 io/convert_backbones.py and io/convert.py the other way, producing
 diffusers-layout (UNet2DConditionModel, AutoencoderKL), transformers-layout
 (CLIP text/vision, safety checker) and torch-layout (BiSeNet
-face_parsing.pth, ArcFace iresnet, SCRFD) flat numpy dicts. With
+face_parsing.pth, ArcFace iresnet, SCRFD) flat numpy dicts, and the
+port's LLaVA-1.5 captioner as an HF llava state dict of its tensors
+(`llava_to_hf`). With
 `io.from_jax.tree_from_module` in front they write a port module's weights
 as reference checkpoint files (chip_smoke.py's load phase, the tests'
 round trips).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 
@@ -365,4 +367,25 @@ def scrfd_to_torch(params, stats, cfg) -> Dict[str, np.ndarray]:
     for i in range(len(cfg.strides)):
         out[f"bbox_head.scales.{i}.scale"] = _arr(
             hp[f"scale_{i}"]).reshape(())
+    return out
+
+
+def llava_to_hf(state: Mapping, cfg, layout: str = "modern") -> Dict:
+    """A `models.llava.Llava` state dict (float) -> an HF
+    LlavaForConditionalGeneration state dict in the `modern`
+    (model.language_model.*) or `legacy` (language_model.model.*) key
+    layout: the inverse of `io.convert_backbones.llava_names_from_hf`,
+    the tensors themselves (no copy, no transpose)."""
+    from .convert_backbones import llava_names_from_hf
+
+    if layout == "modern":
+        keys = ["model.language_model.", "model.vision_tower.vision_model."]
+    elif layout == "legacy":
+        keys = ["vision_tower.vision_model."]
+    else:
+        raise ValueError(f"layout {layout!r}: modern or legacy")
+    out = {hf: state[port]
+           for port, hf in llava_names_from_hf(keys, cfg).items()}
+    if layout == "legacy" and "lm_head.weight" in out:
+        out["language_model.lm_head.weight"] = out.pop("lm_head.weight")
     return out

@@ -101,11 +101,20 @@ def state_from_jax(variables: Mapping,
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d)
 
 
-def _leaf_from_param(module: nn.Module, leaf: str, t: torch.Tensor):
+def _host(t: torch.Tensor, dtype: torch.dtype) -> np.ndarray:
+    """A tensor on the host as numpy, a floating one cast to `dtype` first
+    (on its own device)."""
+    t = t.detach()
+    return (t.to(dtype) if t.is_floating_point() else t).cpu().numpy()
+
+
+def _leaf_from_param(module: nn.Module, leaf: str, t: torch.Tensor,
+                     dtype: torch.dtype = torch.float32):
     """(flax leaf name, numpy array) of one parameter of `module`: the
-    inverse of `params_from_jax`'s leaf map."""
-    a = t.detach().float().cpu().numpy() if t.is_floating_point() \
-        else t.detach().cpu().numpy()
+    inverse of `params_from_jax`'s leaf map. Kernels are transposed views
+    of the host copy (the exporters transpose them back to the module's
+    own contiguous layout, with no strided copy in between)."""
+    a = _host(t, dtype)
     if leaf != "weight":
         return leaf, a
     if isinstance(module, nn.Embedding):
@@ -115,20 +124,23 @@ def _leaf_from_param(module: nn.Module, leaf: str, t: torch.Tensor):
     if isinstance(module, _NORMS) or a.ndim == 1:
         return "scale", a
     if a.ndim == 4:
-        return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        return "kernel", a.transpose(2, 3, 1, 0)
     if a.ndim == 2:
-        return "kernel", np.ascontiguousarray(a.T)
+        return "kernel", a.T
     raise ValueError(f"{type(module).__name__}.weight of rank {a.ndim}")
 
 
 def tree_from_module(module: nn.Module,
                      flatten_nhwc: Optional[Mapping[str, int]] = None,
-                     keep: Optional[Callable[[str], bool]] = None
+                     keep: Optional[Callable[[str], bool]] = None,
+                     dtype: torch.dtype = torch.float32
                      ) -> Tuple[Dict, Dict]:
     """A port module's weights as flax-shaped (params, batch_stats) trees of
-    fp32 numpy arrays: the inverse of `state_from_jax`, including its
-    `flatten_nhwc` permutation (given the same names). `keep`: only the
-    parameters whose dotted state-dict name it accepts."""
+    numpy arrays, the floating ones in `dtype` (cast on the module's
+    device, so a writer that casts anyway moves half the bytes for fp16):
+    the inverse of `state_from_jax`, including its `flatten_nhwc`
+    permutation (given the same names). `keep`: only the parameters whose
+    dotted state-dict name it accepts."""
     params: Dict = {}
     stats: Dict = {}
 
@@ -142,7 +154,7 @@ def tree_from_module(module: nn.Module,
             if keep is not None and not keep(f"{name}.{leaf}" if name
                                              else leaf):
                 continue
-            key, a = _leaf_from_param(mod, leaf, t)
+            key, a = _leaf_from_param(mod, leaf, t, dtype)
             if key == "kernel" and name in (flatten_nhwc or {}):
                 c = flatten_nhwc[name]
                 n_in, out_dim = a.shape
@@ -154,5 +166,5 @@ def tree_from_module(module: nn.Module,
         for leaf, t in mod.named_buffers(recurse=False):
             if leaf in ("running_mean", "running_var"):
                 node(stats, name)["mean" if leaf == "running_mean"
-                                  else "var"] = t.detach().float().cpu().numpy()
+                                  else "var"] = _host(t, dtype)
     return params, stats

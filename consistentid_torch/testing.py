@@ -321,3 +321,141 @@ def synthetic_clip_tokenizer():
               + ["<|startoftext|>", "<|endoftext|>"])
     vocab = {t: i for i, t in enumerate(dict.fromkeys(tokens))}
     return CLIPBPETokenizer(vocab, [])
+
+
+# The tiny LLaVA of the CPU parity tests and the card checks: a 2-layer
+# ViT at 28 px (4 patches) and a 2-layer GQA Llama over a 512-entry
+# vocab (the size of `synthetic_llama_tokenizer_json(512)`); every product
+# width a multiple of 8, as torch._int_mm takes under int8
+TINY_LLAVA_VISION = dict(image_size=28, patch_size=14, hidden_size=24,
+                         intermediate_size=48, num_layers=2, num_heads=2,
+                         hidden_act="quick_gelu")
+TINY_LLAVA_TEXT = dict(vocab_size=512, hidden_size=32, intermediate_size=64,
+                       num_layers=2, num_heads=4, num_kv_heads=2,
+                       max_position_embeddings=512)
+
+
+def tiny_llava_config():
+    from .core.config import LlamaConfig, LlavaConfig
+    return LlavaConfig(vision=CLIPVisionConfig(**TINY_LLAVA_VISION),
+                       text=LlamaConfig(**TINY_LLAVA_TEXT),
+                       image_token_id=TINY_LLAVA_TEXT["vocab_size"] - 1)
+
+
+# A small English corpus for `synthetic_llama_tokenizer_json`'s merges: the
+# FGID prompts, the llava_v1 system text and facial words, so those texts
+# tokenize into multi-character pieces as they would with a trained vocab
+_LLAMA_CORPUS = (
+    "A chat between a curious human and an artificial intelligence "
+    "assistant. The assistant gives helpful, detailed, and polite answers "
+    "to the human's questions. USER: ASSISTANT: Please describe the people "
+    "in the image, including their gender, age, clothing, facial "
+    "expressions, and any other distinguishing features. Describe this "
+    "person's facial features for me, including face, ears, eyes, nose, "
+    "and mouth. The person has one face, one nose, two eyes, two ears, and "
+    "one mouth. a photo of a woman with long hair and a man with a beard "
+    "smiling, wearing glasses, a shirt and a jacket outdoors.")
+
+
+def synthetic_llama_tokenizer_json(vocab_size: int = 32000,
+                                   seed: int = 0) -> Dict:
+    """A Llama-2-style HF tokenizer.json (the llava-hf kind: Prepend and
+    Replace "▁" normalizer, BPE with byte fallback, "<s> $A" template,
+    ByteFallback / Fuse / Strip decoder) of `vocab_size` entries: <unk>,
+    <s>, </s>, the 256 byte tokens, the corpus's characters, merges
+    learned on the corpus by pair counts, then seeded random merges of
+    existing pieces (a "▁" only at a piece's start) up to the size. Ids
+    do not match the real Llama vocab; the format does."""
+    import random
+
+    rng = random.Random(seed)
+    vocab: Dict[str, int] = {}
+    for t in ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]:
+        vocab[t] = len(vocab)
+    chars = sorted(set("▁" + _LLAMA_CORPUS.replace(" ", "▁")
+                       + "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                       + "0123456789.,;:!?'\"()-éüñ"))
+    for c in chars:
+        vocab.setdefault(c, len(vocab))
+    merges = []
+
+    def add_merge(a, b):
+        merges.append(f"{a} {b}")
+        vocab[a + b] = len(vocab)
+
+    words = [list("▁" + w) for w in _LLAMA_CORPUS.split()]
+    while len(vocab) < vocab_size:
+        counts: Dict = {}
+        for w in words:
+            for pair in zip(w, w[1:]):
+                counts[pair] = counts.get(pair, 0) + 1
+        if not counts:
+            break
+        pair, n = max(counts.items(), key=lambda kv: (kv[1], kv[0]))
+        if n < 2:
+            break
+        add_merge(*pair)
+        for w in words:
+            i = 0
+            while i < len(w) - 1:
+                if (w[i], w[i + 1]) == pair:
+                    w[i:i + 2] = [pair[0] + pair[1]]
+                i += 1
+    pieces = [t for t in vocab if not t.startswith("<")]
+    tails = [t for t in pieces if not t.startswith("▁")]
+    while len(vocab) < vocab_size:
+        a, b = rng.choice(pieces), rng.choice(tails)
+        if a + b in vocab or len(a + b) > 16:
+            continue
+        add_merge(a, b)
+        pieces.append(a + b)
+        if not a.startswith("▁"):
+            tails.append(a + b)
+    special = dict(single_word=False, lstrip=False, rstrip=False,
+                   normalized=False, special=True)
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [dict(id=i, content=t, **special)
+                         for i, t in enumerate(["<unk>", "<s>", "</s>"])],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "},
+             "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                       "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def write_llama_tokenizer(model_dir: str, vocab_size: int = 32000,
+                          seed: int = 0) -> None:
+    """`synthetic_llama_tokenizer_json` as model_dir/tokenizer.json, with
+    the tokenizer_config.json naming its bos and eos."""
+    import json
+    import os
+
+    with open(os.path.join(model_dir, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(synthetic_llama_tokenizer_json(vocab_size, seed), f,
+                  ensure_ascii=False)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>"}, f)

@@ -12,7 +12,9 @@ DeepCache cores on the card against the CPU; the int8 products
 UNet's shapes and at m <= 16), the int8 layers and the tiny int8 UNet on
 the card against the CPU; PIL's resample on the card against the CPU; the
 eval scorers (CLIP-T, FaceSim) and the PhotoMaker encoder on the card
-against the CPU, and the validation CLI's tiny self-test on the card.
+against the CPU, and the validation CLI's tiny self-test on the card; the
+tiny LLaVA captioner's ids, int8 and int8-KV decode (torch._int_mm at m =
+1) and apps.fgid's mask and faceid stages on the card against the CPU.
 Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs on a machine without it:
 
@@ -1043,3 +1045,162 @@ def test_validate_synthesize_tiny_on_card(cuda_generator, tmp_path):
             m for m, _, _ in validate.SERVING_MODES]
     assert {"face_sim", "clip_t"} <= set(report["metrics"])
     assert port_flash.flash_attention_fwd.launches > before
+
+
+# ------------------------------------------------- LLaVA captioner, FGID
+
+def _tiny_llava_pair():
+    """The tiny LLaVA (fp32, seeded fan-in weights) on the CPU and a copy
+    on the card, with the synthetic tokenizer."""
+    import copy
+
+    from consistentid_torch.conditioning.llama_tokenizer import \
+        LlamaTokenizer
+    from consistentid_torch.models.llava import random_llava
+    from consistentid_torch.testing import (synthetic_llama_tokenizer_json,
+                                            tiny_llava_config)
+    cpu = random_llava(tiny_llava_config(), seed=0).eval()
+    tok = LlamaTokenizer(synthetic_llama_tokenizer_json(512))
+    return cpu, copy.deepcopy(cpu).cuda(), tok
+
+
+def _tiny_faces(n=2):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, 256, (30 + 4 * i, 26 + 6 * i, 3),
+                         dtype=np.uint8) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_tiny_llava_captions_card_vs_cpu(cuda_generator):
+    """The tiny fp32 LLaVA's caption ids (batch 2, both FGID prompts, 12
+    tokens) on the card equal the CPU's, TF32 off; no flash kernel runs
+    (the tower's 5 tokens are far under the cutover)."""
+    import numpy as np
+
+    from consistentid_torch.conditioning.captioner import LlavaCaptioner
+    cpu, card, tok = _tiny_llava_pair()
+    before = port_flash.flash_attention_fwd.launches
+    with tf32_off():
+        for prompt in ("Describe the face.", "Who is this?"):
+            want = LlavaCaptioner(cpu, tok, max_new_tokens=12).generate_ids(
+                _tiny_faces(), prompt)
+            got = LlavaCaptioner(card, tok, max_new_tokens=12).generate_ids(
+                _tiny_faces(), prompt)
+            np.testing.assert_array_equal(got, want)
+    assert port_flash.flash_attention_fwd.launches == before
+
+
+def _cached_logits(lm, ids, prefill, kv_quant):
+    from consistentid_torch.models import llama
+    with torch.no_grad():
+        cache = llama.init_cache(lm.config, ids.shape[0], ids.shape[1],
+                                 kv_quant=kv_quant, device=ids.device)
+        out, cache = lm(ids[:, :prefill], cache=cache, cache_index=0,
+                        attn_len=prefill)
+        outs = [out]
+        for i in range(prefill, ids.shape[1]):
+            out, cache = lm(ids[:, i:i + 1], cache=cache, cache_index=i,
+                            attn_len=ids.shape[1])
+            outs.append(out)
+    return torch.cat(outs, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,kv_quant", [(True, False), (True, True),
+                                            (False, True)],
+                         ids=["int8", "int8_kv", "kv"])
+def test_int8_and_kv_quant_decode_card_vs_cpu(cuda_generator, quant,
+                                              kv_quant):
+    """Batch-1 prefill and decode of the tiny Llama on the card against
+    the CPU, fp32 with TF32 off: under int8 each model call's 7 products
+    a layer and lm_head go through torch._int_mm, m = 1 padded to 17; the
+    logits within 1e-2 relative L2 (the card's fp32 sums may move an
+    activation across a rounding boundary and flip its int8 code, one
+    step of 1/127 of its token's range). Then greedy_generate on the card
+    (its decode steps replayed from one CUDA graph) emits the argmax of
+    the card's eager logits over its own stream, and counts the graph's
+    _int_mm launches at each replay."""
+    from consistentid_torch.models import llama
+    from consistentid_torch.ops import quant as quant_ops
+    cpu, _, _ = _tiny_llava_pair()
+    cfg = cpu.config.text
+    state = cpu.llama.state_dict()
+    if quant:
+        state = llama.quantize_llama_params(cfg, state)
+    lm = llama.LlamaForCausalLM(cfg, quant=quant)
+    lm.load_state_dict(state)
+    ids = torch.randint(3, cfg.vocab_size, (1, 12),
+                        generator=torch.Generator().manual_seed(4))
+    per_call = 7 * cfg.num_layers + 1 if quant else 0
+    with tf32_off():
+        want = _cached_logits(lm, ids, 8, kv_quant)
+        lm = lm.cuda()
+        before = quant_ops.int_mm.launches
+        got = _cached_logits(lm, ids.cuda(), 8, kv_quant)
+        assert quant_ops.int_mm.launches - before == 5 * per_call
+        assert rel_l2(got.cpu(), want) <= 1e-2
+        before = quant_ops.int_mm.launches
+        new = llama.greedy_generate(lm, ids[:, :8].cuda(), 6,
+                                    eos_token_id=cfg.vocab_size + 1,
+                                    kv_quant=kv_quant)
+        assert quant_ops.int_mm.launches - before == 6 * per_call
+        stream = torch.cat([ids[:, :8].cuda(), new], dim=1)
+        eager = _cached_logits(lm, stream, 8, kv_quant)
+    assert torch.equal(eager[:, 7:-1].argmax(-1), new)
+
+
+@pytest.mark.cuda
+def test_fgid_mask_and_faceid_card_vs_cpu(cuda_generator, tmp_path):
+    """apps.fgid's mask stage (BiSeNet at 128 px) and faceid stage (a
+    tiny iresnet) over 2 PNG faces on the card and on the CPU, TF32 off:
+    the labels equal on at least PERCEPTION_LABEL_AGREEMENT of the pixels,
+    the resized PNGs the same bytes, the embeddings within 1e-5."""
+    import numpy as np
+
+    from consistentid_torch.apps import fgid
+    from consistentid_torch.io import export_backbones as exp
+    from consistentid_torch.io.from_jax import tree_from_module
+    from consistentid_torch.models.arcface import IResNet
+    from consistentid_torch.models.bisenet import BiSeNet
+    from consistentid_torch.testing import PERCEPTION_LABEL_AGREEMENT
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    images = tmp_path / "images"
+    images.mkdir()
+    for i, face in enumerate(_tiny_faces()):
+        (images / f"face{i}.png").write_bytes(encode_png(face))
+    gen = torch.Generator().manual_seed(0)
+    parser, embedder = BiSeNet(), IResNet((1, 1, 1, 1), 32, 32)
+    with torch.no_grad():
+        randomize_perception_module(parser, gen)
+        randomize_perception_module(embedder, gen)
+
+    def save(sd, name):
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in sd.items()}, tmp_path / name)
+
+    save(exp.bisenet_to_torch(*tree_from_module(parser)), "parser.pth")
+    save(exp.iresnet_to_torch(*tree_from_module(
+        embedder, flatten_nhwc={"fc": 512}), layers=(1, 1, 1, 1),
+        spatial=2), "arcface.pt")
+    with tf32_off():
+        for device in ("cpu", "cuda"):
+            out = str(tmp_path / device)
+            fgid.run_mask(str(images), out, str(tmp_path / "parser.pth"),
+                          batch_size=2, size=128, device=device)
+            fgid.run_faceid(str(images), out, str(tmp_path / "arcface.pt"),
+                            batch_size=2, device=device)
+    agree = total = 0
+    for i in range(2):
+        read = {sub: [(tmp_path / d / sub / f"face{i}.{ext}").read_bytes()
+                      for d in ("cpu", "cuda")]
+                for sub, ext in (("resize", "png"), ("mask", "png"),
+                                 ("faceid", "bin"))}
+        assert read["resize"][0] == read["resize"][1]
+        labels = [decode_png(b) for b in read["mask"]]
+        agree += int((labels[0] == labels[1]).sum())
+        total += labels[0].size
+        want, got = (np.frombuffer(b, np.float32) for b in read["faceid"])
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-5
+    assert agree >= PERCEPTION_LABEL_AGREEMENT * total

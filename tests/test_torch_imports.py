@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither JAX nor the JAX package, and no source file of it (nor
-chip_smoke.py) imports them, or Pillow or OpenCV, which the card's
-machine does not have."""
+chip_smoke.py) imports them, or Pillow, OpenCV, transformers, tokenizers
+or sentencepiece, which the card's machine does not have."""
 import ast
 import os
 import subprocess
@@ -10,7 +10,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "consistentid_tpu")
-NOT_ON_THE_CARD = ("PIL", "cv2")
+NOT_ON_THE_CARD = ("PIL", "cv2", "transformers", "tokenizers",
+                   "sentencepiece")
 
 
 def test_import_loads_no_jax():
