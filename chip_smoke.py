@@ -151,15 +151,16 @@ Phases, each printing its result; any failure exits non-zero:
  28. SDXL int8_static inside phase 16: calibrated (8 steps), one request
      at 1024x1024 (K1 3500, int_mm 50 per int8 layer).
  29. eval and checkpoint validation (after phase 27, on the set of phase
-     12): `apps.validate.main` at full width (512 px, 40 DDIM steps) with
-     every converter stage (each entry ok: no unconsumed key, no zero
-     kernel, nothing non-finite), SD1.5 and inpaint, FaceSim and CLIP-T
-     (seeded projection heads), `--sweep 4` and `--mode-sweep 4`: the
-     seven serving modes each scored, a warm-up and a batch-4 request
-     each, K1 400 a request (300, 270 at DeepCache intervals 2, 3; 320
-     the inpaint at strength 0.8) on sm90; then `apps.eval_sweep.main
-     --synthesize-protocol --limit 8 --batch-size 4` (rows/min; K1 500 a
-     batch). Random weights: the scores test the plumbing, not quality.
+     12): `apps.validate.main` at full width (512 px, VALIDATE_STEPS = 25
+     DDIM steps) with every converter stage (each entry ok: no unconsumed
+     key, no zero kernel, nothing non-finite), SD1.5 and inpaint, FaceSim
+     and CLIP-T (seeded projection heads), `--sweep 4` and `--mode-sweep
+     4`: the seven serving modes each scored, a warm-up and a batch-4
+     request each, K1 10 a step of a request (fewer at DeepCache
+     intervals 2, 3; the inpaint at strength 0.8 its 80% of the steps) on
+     sm90; then `apps.eval_sweep.main --synthesize-protocol --limit 8
+     --batch-size 4 --steps 25` (rows/min; K1 250 a batch). Random
+     weights: the scores test the plumbing, not quality.
  30. FGID production and the LLaVA-1.5 captioner (after phase 29, on the
      set of phase 12): LLaVA-1.5-7B at full width (ViT-L/14-336 and
      Llama-2-7B, 7.06 B parameters, bf16, seeded random weights built on
@@ -176,6 +177,28 @@ Phases, each printing its result; any failure exits non-zero:
      8 PNG faces at 512 px and `apps.precompute.main` over the fused
      JSON_all.json (images/s a stage, the decode route); the tiny fp32
      LLaVA's ids on the card against the CPU; K1-K6 launched 0 times.
+ 31. parallel/ on torch.distributed (after phase 30, on its LLaVA set):
+     two ranks on the one card over gloo (collectives staged through host
+     memory), started by the port's launcher; every rank asserts world
+     size 2 and a rank that fails fails the run. The full-width SD1.5
+     bundle of phase 4: one UNet call under TP=2 against world size 1
+     (2% of the output's largest value, the UNet path check's bound; 4
+     heads a rank at level 0), a TP=2 generate (2 images) and a DP=2
+     generate_batch (4 requests), PAR_STEPS DDIM steps at 512 px, their
+     uint8 difference from world size 1 recorded; LLaVA-1.5-7B from the set
+     under TP=2 (16 KV heads a rank): prefill logits against world size 1
+     (PAR_LLAVA_LOGITS_REL_L2) and 16 greedy tokens at batch 1, decoded
+     eagerly (gloo); 3 DP=2 train
+     steps (batch 2 a rank, 512 px) against one rank's grad-accumulation
+     step over the same shards and draws (loss 1e-5; masters rtol 2e-4,
+     atol 2e-6; deterministic); K1 10 a UNet call and K2, K3 + K4 10 a
+     step a rank; then `apps.serve.main --tp 2`: one card, so no mesh and
+     single-device serving (asserted), 2 requests.
+ 32. BiSeNet training (`bisenet_phase`): `bisenet_tools preprocess` over
+     16 synthetic part-mask sets, `FaceMaskDataset` (crop 448), 5 steps at
+     batch 16 (s/step, peak GiB), 2 ranks x 8 with SyncBN against the
+     one-device replay 1 x 16 from the same state, `bisenet_tools evaluate`
+     and `makeup` over the trained parser; K1-K6 launched 0 times.
 Phase 9 runs after phase 3, phases 21, 22, 24, 25 and then 10 to 17 after
 phase 5 (before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
 (1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
@@ -3895,7 +3918,7 @@ def k1_per_request(steps: int, interval: int = 1) -> int:
 CALIBRATION_K1 = 10 * 4
 # steps of every request of the validate CLI's run (--steps): past its
 # merge step (30), so each request runs the merged identity embeddings
-VALIDATE_STEPS = 40
+VALIDATE_STEPS = 25
 
 
 def validate_phase(paths, outdir):
@@ -3909,10 +3932,10 @@ def validate_phase(paths, outdir):
     each); then `apps.eval_sweep.main --synthesize-protocol --limit 8
     --batch-size 4`. Fails unless every converter entry is ok, the report
     is ok, every mode has img_per_min, face_sim and clip_t, K1 ran on sm90
-    exactly its count over the run (at 40 steps 400 a text-to-image
-    request, 300 and 270 at DeepCache intervals 2 and 3, 320 the inpaint
-    at strength 0.8, 40 the calibration; the eval sweep at its 50 steps,
-    500 a batch) and no other kernel ran. Random weights: the scores test
+    exactly its count over the run (k1_per_request: 10 a step of a
+    text-to-image request, fewer at DeepCache intervals 2 and 3, the
+    inpaint at strength 0.8 its 80% of the steps, 10 a calibration step;
+    the eval sweep at the same steps) and no other kernel ran. Random weights: the scores test
     the plumbing, not quality."""
     import numpy as np
     import torch
@@ -4012,11 +4035,12 @@ def validate_phase(paths, outdir):
                           "--scrfd", paths["scrfd_path"],
                           "--output-dir", str(out),
                           "--synthesize-protocol", "--limit", "8",
-                          "--batch-size", "4"])
+                          "--batch-size", "4", "--steps",
+                          str(VALIDATE_STEPS)])
     sweep_launches = [w.launches for w in counters]
     with open(out / "sweep_summary_shard0.json") as f:
         summary = json.load(f)
-    want_k1 = 2 * k1_per_request(50)
+    want_k1 = 2 * k1_per_request(VALIDATE_STEPS)
     if (rc != 0 or summary["rows_this_shard"] != 8
             or sweep_launches != [want_k1, 0, 0, 0, 0]
             or k1.launches_by_route["sm90"] != want_k1
@@ -4483,23 +4507,19 @@ def tiny_llava_check():
     return dict(equal=same)
 
 
-def fgid_phase(paths, outdir, smi: str):
-    """Phase 30: LLaVA-1.5-7B on the card (`llava_phase`), `apps.fgid`
-    end to end with `apps.precompute` over its manifest
-    (`fgid_cli_phase`), the tiny LLaVA card against CPU; K1-K6 launched
-    0 times over it."""
+def fgid_phase(paths, outdir, smi: str, set_dir: Path):
+    """Phase 30: LLaVA-1.5-7B on the card (`llava_phase`), written to
+    `set_dir` (left for phase 31), `apps.fgid` end to end with
+    `apps.precompute` over its manifest (`fgid_cli_phase`), the tiny LLaVA
+    card against CPU; K1-K6 launched 0 times over it."""
     import torch
     from consistentid_torch.ops import flash_attention as fa
     counters = launch_counters() + bn_counters()
     fa.reset_launches(*counters)
-    set_dir = Path(outdir, "llava-1.5-7b-hf")
     set_dir.mkdir()
     t0 = time.perf_counter()
-    try:
-        llava = llava_phase(set_dir, smi)
-        cli = fgid_cli_phase(paths, outdir, set_dir)
-    finally:
-        shutil.rmtree(set_dir, ignore_errors=True)
+    llava = llava_phase(set_dir, smi)
+    cli = fgid_cli_phase(paths, outdir, set_dir)
     tiny = tiny_llava_check()
     launches = [w.launches for w in counters]
     if any(launches):
@@ -4511,6 +4531,549 @@ def fgid_phase(paths, outdir, smi: str):
         f" K1-K6 launches {launches}")
     return dict(llava=llava, cli=cli, tiny=tiny, launches=launches,
                 seconds=seconds)
+
+
+# ----------------------------------------------- phases 31 and 32: 2 ranks
+
+PAR_STEPS = 3       # denoising steps of the parallel phase's requests
+PAR_NEW_TOKENS = 16
+PAR_TRAIN_STEPS = 3
+# the TP=2 UNet call against world size 1: the UNet path check's bound
+# (bf16: the row-parallel partial products round to bf16 before their sum)
+PAR_UNET_REL_MAX = 0.02
+# LLaVA-1.5-7B's TP=2 prefill logits against world size 1, relative L2:
+# bf16 partial products of o_proj and down_proj, rounded before their sum,
+# through 32 layers (first reading on an H100: 2.21e-2, argmax agreement
+# 97.4%, 16 of 16 greedy tokens equal)
+PAR_LLAVA_LOGITS_REL_L2 = 4e-2
+
+
+def _rank_clock(counters):
+    """A timer over one call made by every rank at once: barrier, launch
+    counts to 0, the call, a sync; (result, seconds, launches)."""
+    import torch
+    import torch.distributed as dist
+    from consistentid_torch.ops import flash_attention as fa
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        fa.reset_launches(*counters)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, [c.launches for c in counters]
+    return timed
+
+
+def _one_rank(fn, main: bool):
+    """fn() on rank 0 alone, timed on the otherwise idle card (world size
+    1's reference); the other rank waits at the next barrier."""
+    import torch
+    if not main:
+        return None, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sd15_bundle():
+    import torch
+    from consistentid_torch.core import AdapterConfig, sd15_unet_config
+    from consistentid_torch.pipelines import SD15Bundle
+    bundle = SD15Bundle(sd15_unet_config(lora_rank=128, ip_num_tokens=4),
+                        AdapterConfig(), dtype=torch.bfloat16, device="cuda")
+    bundle.random_params(torch.Generator("cuda").manual_seed(0))
+    return bundle
+
+
+def _u8_diff(got, want) -> dict:
+    import numpy as np
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return {"max": int(d.max()), "mean": float(d.mean()),
+            "share_over_1": float((d > 1).mean())}
+
+
+def parallel_rank(set_dir: str) -> dict:
+    """One of two ranks on the card (phase 31): the full-width SD1.5 bundle
+    of phase 4 (seed 0) under TP=2 (a UNet call, generate) and DP=2
+    (generate_batch of 4), LLaVA-1.5-7B of phase 30's set under TP=2, and
+    3 DP=2 train steps; rank 0 also runs every world-size-1 reference and
+    holds the results to it."""
+    import numpy as np
+    import torch
+    from consistentid_torch.conditioning.captioner import (LlavaCaptioner,
+                                                           load_llava)
+    from consistentid_torch.conditioning.llama_tokenizer import \
+        LlamaTokenizer
+    from consistentid_torch.core import (PipelineConfig, SchedulerConfig,
+                                         TrainConfig)
+    from consistentid_torch.models.llama import greedy_generate
+    from consistentid_torch.parallel import (make_mesh, shard_batch,
+                                             tensor_parallel_unet, world_size)
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.sampling import NoiseSchedule
+    from consistentid_torch.testing import (deterministic, rel_l2,
+                                            synthetic_clip_tokenizer)
+    from consistentid_torch.training import (create_train_state, make_draws,
+                                             make_train_step, synthetic_batch,
+                                             warm_start_ip_projections)
+
+    if world_size() != 2:
+        raise AssertionError(f"parallel: world size {world_size()}, not 2")
+    tp_mesh, dp_mesh = make_mesh(model=2), make_mesh()
+    main = dp_mesh.is_main
+    counters = launch_counters() + bn_counters()
+    timed = _rank_clock(counters)
+    t_rank = time.perf_counter()
+
+    def note(what):
+        if main:
+            log(f"  rank 0 [{time.perf_counter() - t_rank:.1f} s]: {what}")
+    out = {"rank": dp_mesh.rank, "backend": dp_mesh.backend,
+           "device": str(dp_mesh.device)}
+
+    # -- SD1.5 serving: TP=2 UNet call and generate, DP=2 generate_batch
+    bundle = _sd15_bundle()
+    tok = synthetic_clip_tokenizer()
+    cfg = PipelineConfig(height=512, width=512,
+                         num_inference_steps=PAR_STEPS, start_merge_step=6)
+    one, tp, dp = (ConsistentIDPipeline(bundle, tok, pipeline_config=cfg,
+                                        mesh=m)
+                   for m in (None, tp_mesh, dp_mesh))
+    gen = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((8,), 501.0, device="cuda")
+    ctx = torch.randn((8, 81, 768), generator=gen, device="cuda")
+    with torch.no_grad():
+        unet = bundle.infer_unet(1.0)
+        ref, _ = _one_rank(lambda: unet(x, t, ctx).float(), main)
+        split = tensor_parallel_unet(unet, tp_mesh)
+        got, s, launches = timed(lambda: split(x, t, ctx).float())
+    heads = split.down_0_attn_0.blocks_0.attn1.heads
+    out["unet_call"] = {"k1_launches": launches[0], "s": s,
+                        "heads_per_rank_level0": heads}
+    if main:
+        diff = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        out["unet_call"].update(max_abs_diff=diff, max_abs_ref=scale,
+                                rel_l2=rel_l2(got, ref))
+        if not (diff <= PAR_UNET_REL_MAX * scale and launches[0] == 10
+                and heads == 4):
+            raise AssertionError(f"parallel: TP=2 UNet call {out['unet_call']}")
+    del unet, split
+    note(f"TP=2 UNet call {out['unet_call']}")
+    face, labels, faceid = face_inputs()
+    kw = dict(parsing_labels=labels, faceid_embeds=faceid,
+              num_images_per_prompt=2)
+    ref, s1 = _one_rank(lambda: one.generate(PROMPT, face, seed=3, **kw),
+                        main)
+    got, s, launches = timed(lambda: tp.generate(PROMPT, face, seed=3, **kw))
+    out["tp_generate"] = {"images": 2, "s_per_request": s,
+                          "one_rank_s": s1, "launches": launches[:3]}
+    if main:
+        out["tp_generate"]["u8_diff"] = _u8_diff(got, ref)
+    if got.shape != (2, 512, 512, 3) or launches[0] != 10 * PAR_STEPS:
+        raise AssertionError(f"parallel: TP generate {got.shape} "
+                             f"{launches}")
+    note(f"TP=2 generate {out['tp_generate']}")
+    faces = [np.roll(face, 37 * i, axis=1) for i in range(4)]
+    bkw = dict(parsing_labels_list=[labels] * 4,
+               faceid_embeds_list=[faceid] * 4, seeds=[11, 12, 13, 14])
+    ref, s1 = _one_rank(
+        lambda: one.generate_batch([PROMPT] * 4, faces, **bkw), main)
+    got, s, launches = timed(
+        lambda: dp.generate_batch([PROMPT] * 4, faces, **bkw))
+    out["dp_generate_batch"] = {"requests": 4, "s": s,
+                                "s_per_request": s / 4,
+                                "one_rank_s_per_request":
+                                    None if s1 is None else s1 / 4,
+                                "launches": launches[:3]}
+    if main:
+        out["dp_generate_batch"]["u8_diff"] = _u8_diff(got, ref)
+    if got.shape != (4, 512, 512, 3) or launches[0] != 10 * PAR_STEPS:
+        raise AssertionError(f"parallel: DP generate_batch {got.shape} "
+                             f"{launches}")
+    note(f"DP=2 generate_batch {out['dp_generate_batch']}")
+    del one, tp, dp, bundle
+    torch.cuda.empty_cache()
+
+    # -- LLaVA-1.5-7B: TP=2 prefill logits and 16 greedy tokens
+    full = load_llava(set_dir, device="cuda")
+    llama_tok = LlamaTokenizer.from_pretrained(set_dir)
+    ids = torch.tensor([llama_tok.encode(
+        "USER: Please describe the people in the image. ASSISTANT:")],
+        device="cuda")
+    eos = int(llama_tok.eos_token_id)
+
+    def prefill(llama):
+        with torch.no_grad():
+            return llama(ids)[0].float()
+
+    def decode(llama):
+        return greedy_generate(llama, ids, PAR_NEW_TOKENS, eos)
+
+    ref, _ = _one_rank(lambda: prefill(full.llama), main)
+    ref_tok, s1 = _one_rank(lambda: decode(full.llama), main)
+    cap = LlavaCaptioner(full, llama_tok, mesh=tp_mesh,
+                         max_new_tokens=PAR_NEW_TOKENS)
+    del full
+    torch.cuda.empty_cache()
+    llama = cap.model.llama
+    got, _, _ = timed(lambda: prefill(llama))
+    toks, s, launches = timed(lambda: decode(llama))
+    out["llava"] = {"prefill_tokens": ids.shape[1], "eager": llama.eager_decode,
+                    "kv_heads_per_rank": llama.kv_heads,
+                    "decode_ms_per_token": s / PAR_NEW_TOKENS * 1e3,
+                    "one_rank_decode_ms_per_token":
+                        None if s1 is None else s1 / PAR_NEW_TOKENS * 1e3,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "launches": launches}
+    if main:
+        same = (toks == ref_tok).reshape(-1).tolist()
+        out["llava"].update(
+            logits_rel_l2=rel_l2(got, ref),
+            argmax_agreement=float((got.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()),
+            tokens_equal_prefix=(same + [False]).index(False))
+        if out["llava"]["logits_rel_l2"] > PAR_LLAVA_LOGITS_REL_L2:
+            raise AssertionError(f"parallel: LLaVA TP logits {out['llava']}")
+    if any(launches) or llama.kv_heads != 16:
+        raise AssertionError(f"parallel: LLaVA TP {out['llava']}")
+    note(f"LLaVA TP=2 {out['llava']}")
+    del cap, llama
+    torch.cuda.empty_cache()
+
+    # -- 3 DP=2 train steps (batch 2 a rank, 512 px) against one rank's
+    # grad-accumulation step over the same two shards and draws
+    sched = NoiseSchedule.create(SchedulerConfig())
+    t_train = sched.config.num_train_timesteps
+    batches = [synthetic_batch(4, 512, 224, 512, seed=s)
+               for s in range(PAR_TRAIN_STEPS)]
+
+    def draws(i, r):
+        g = torch.Generator("cuda").manual_seed(100 * i + r)
+        return make_draws(g, (2, 64, 64, 4), t_train, torch.bfloat16)
+
+    def fresh(config):
+        b = _sd15_bundle()
+        warm_start_ip_projections(b.unet)
+        return b, create_train_state(b, config)
+
+    accum = TrainConfig(grad_accum_steps=2)
+    ref = ref_losses = times = None
+    if main:
+        b, state = fresh(accum)
+        step = make_train_step(b, sched, accum)
+        ref_losses, times = [], []
+        with deterministic():
+            for i, batch in enumerate(batches):
+                stacked = {k: v.reshape(2, 2, *v.shape[1:])
+                           for k, v in batch.items()}
+                (_, m), s1 = _one_rank(lambda: step(
+                    state, stacked, [draws(i, 0), draws(i, 1)]), True)
+                ref_losses.append(float(m["loss"]))
+                times.append(s1)
+        ref = {k: v.detach().clone() for k, v in state.trainable.items()}
+        del b, state, step
+        torch.cuda.empty_cache()
+    b, state = fresh(TrainConfig())
+    step = make_train_step(b, sched, TrainConfig(), mesh=dp_mesh)
+    dp_losses, dp_times, dp_launches = [], [], []
+    with deterministic():
+        for i, batch in enumerate(batches):
+            (_, m), s, launches = timed(lambda: step(
+                state, shard_batch(dp_mesh, batch), draws(i, dp_mesh.rank)))
+            dp_losses.append(float(m["loss"]))
+            dp_times.append(s)
+            dp_launches.append(launches[:3])
+    out["dp_train"] = {"s_per_step": dp_times, "losses": dp_losses,
+                       "launches_per_step": dp_launches}
+    note(f"DP=2 train {out['dp_train']}")
+    if main:
+        out["dp_train"].update(one_rank_accum_s_per_step=times,
+                               one_rank_losses=ref_losses)
+        loss_ok = all(abs(a - r) <= 1e-5 * abs(r)
+                      for a, r in zip(dp_losses, ref_losses))
+        bad = [k for k, v in state.trainable.items() if not torch.allclose(
+            v.detach(), ref[k], rtol=2e-4, atol=2e-6)]
+        worst = max(((v.detach() - ref[k]).abs().max().item(), k)
+                    for k, v in state.trainable.items())
+        out["dp_train"].update(masters_off=len(bad), worst_master=worst)
+        if bad or not loss_ok:
+            raise AssertionError(f"parallel: DP train losses {dp_losses} vs "
+                                 f"{ref_losses}; masters {len(bad)} leaves "
+                                 f"off the one-rank step: {worst}")
+    if any(l != [0, 10, 10] for l in dp_launches):
+        raise AssertionError(f"parallel: DP train launches {dp_launches}")
+    return out
+
+
+def serve_tp_phase(paths, outdir) -> dict:
+    """`apps.serve.main --tp 2` on the one card (512 px, PAR_STEPS DDIM
+    steps, max batch 2, no warm-up): one visible card means no mesh, as the
+    JAX server on one chip, so it serves single-device (asserted: the
+    batcher's pipeline has no mesh and no lockstep) and answers 2
+    concurrent requests 200 with (512, 512, 3) PNGs."""
+    import base64
+    import json
+    import threading
+    import urllib.request
+    import torch
+    from consistentid_torch.apps import serve as serve_app
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    held = {}
+    real_serve = serve_app.serve
+
+    def keep(*a, **kw):
+        held["server"], held["batcher"] = real_serve(*a, **kw)
+        held["pipe"] = a[0]
+        return held["server"], held["batcher"]
+
+    argv = infer_args(paths, outdir, "--tp", "2", "--height", "512",
+                      "--width", "512", "--steps", str(PAR_STEPS),
+                      "--max-batch", "2", "--port", "0", "--no-warmup")
+    serve_app.serve = keep
+    thread = threading.Thread(target=serve_app.main, args=(argv,),
+                              daemon=True)
+    t0 = time.perf_counter()
+    try:
+        thread.start()
+        while "server" not in held:
+            if not thread.is_alive():
+                raise AssertionError("serve --tp 2: the server exited")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("serve --tp 2: no server in 300 s")
+            time.sleep(0.5)
+        pipe = held["pipe"]
+        ranks = serve_app.mesh_ranks(1, 2, torch.cuda.device_count())
+        if (isinstance(pipe, serve_app.LockstepPipeline)
+                or getattr(pipe, "mesh", None) is not None or ranks != 1):
+            raise AssertionError(f"serve --tp 2 on one card: {ranks} ranks, "
+                                 f"pipeline {type(pipe).__name__}")
+        url = f"http://127.0.0.1:{held['server'].server_address[1]}"
+        face = face_inputs()[0]
+        bodies = [json.dumps({"prompt": PROMPT, "seed": 5 + i,
+                              "image_b64": base64.b64encode(encode_png(
+                                  face)).decode()}).encode()
+                  for i in range(2)]
+
+        def post(body):
+            req = urllib.request.Request(url + "/generate", data=body)
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+
+        fa.reset_launches()
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            replies = list(pool.map(post, bodies))
+        s = time.perf_counter() - t1
+        for code, payload in replies:
+            img = decode_png(base64.b64decode(payload["image_b64"]))
+            if code != 200 or img.shape != (512, 512, 3):
+                raise AssertionError(f"serve --tp 2: {code} {img.shape}")
+        k1 = fa.flash_attention_fwd.launches
+        log(f"serve --tp 2 on 1 card: single-device (no mesh), 2 requests "
+            f"in {s:.3f} s, K1 {k1}")
+        return dict(ranks=ranks, wall_s=s, k1_launches=k1,
+                    s_per_request=s / 2)
+    finally:
+        serve_app.serve = real_serve
+        if "server" in held:
+            held["server"].shutdown()
+        thread.join(timeout=120)
+        if thread.is_alive():
+            raise AssertionError("serve --tp 2: the server thread did not "
+                                 "stop")
+
+
+def parallel_phase(paths, outdir, set_dir) -> dict:
+    """Phase 31: two ranks on the one card over gloo, started by the port's
+    launcher (`parallel_rank`), then `serve --tp 2` (`serve_tp_phase`)."""
+    import torch
+    from consistentid_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(parallel_rank, 2, str(set_dir), device_type="cuda")
+    ranks_s = time.perf_counter() - t0
+    served = serve_tp_phase(paths, outdir)
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    log(f"phase 31 (2 ranks, {r0['backend']}, one card): ranks "
+        f"{ranks_s:.1f} s; TP=2 UNet call {r0['unet_call']}; TP=2 generate "
+        f"{r0['tp_generate']}; DP=2 generate_batch "
+        f"{r0['dp_generate_batch']}; LLaVA TP=2 {r0['llava']}; DP=2 train "
+        f"{r0['dp_train']}; rank 1 launches: UNet "
+        f"{ranks[1]['unet_call']['k1_launches']}, generate "
+        f"{ranks[1]['tp_generate']['launches']}, generate_batch "
+        f"{ranks[1]['dp_generate_batch']['launches']}, train "
+        f"{ranks[1]['dp_train']['launches_per_step']}")
+    return dict(ranks=ranks, ranks_s=ranks_s, serve=served)
+
+
+def _bisenet_start(path):
+    import torch
+    from consistentid_torch.training.bisenet_train import \
+        create_bisenet_train_state
+    return create_bisenet_train_state(
+        device="cuda", state=torch.load(path, weights_only=False))
+
+
+def bisenet_rank(path: str) -> dict:
+    """One of two ranks (phase 32): one SyncBN step on its 8 images from
+    the saved state (TF32 off)."""
+    import torch
+    from consistentid_torch.parallel import make_mesh, shard_rows, world_size
+    from consistentid_torch.testing import tf32_off
+    from consistentid_torch.training.bisenet_train import \
+        make_bisenet_train_step
+
+    if world_size() != 2:
+        raise AssertionError(f"BiSeNet: world size {world_size()}, not 2")
+    mesh = make_mesh()
+    data = torch.load(path, weights_only=False)
+    state = _bisenet_start(path)
+    rows = shard_rows(data["images"].shape[0], mesh)
+    with tf32_off():
+        state, m = make_bisenet_train_step(mesh)(
+            state, data["images"][rows], data["labels"][rows])
+    return {"loss": float(m["loss"]), "backend": mesh.backend,
+            "state": {k: v.cpu() for k, v in
+                      state.model.state_dict().items()}}
+
+
+def _write_bisenet_data(root: Path, n: int = 16):
+    """n synthetic 512 px faces (PNG) and CelebAMask-HQ-style part masks
+    (`{i // 2000}/{i:05d}_{part}.png`, 255 inside an ellipse, 225 on a
+    few pixels) for `bisenet_tools preprocess`."""
+    import numpy as np
+    from consistentid_torch.apps.bisenet_tools import CELEBA_PARTS
+    from consistentid_torch.utils.png import encode_png
+
+    rng = np.random.RandomState(32)
+    faces, masks = root / "faces", root / "masks" / "0"
+    faces.mkdir(parents=True)
+    masks.mkdir(parents=True)
+    yy, xx = np.mgrid[:512, :512]
+    for i in range(n):
+        img = rng.randint(0, 255, (512, 512, 3), np.uint8)
+        (faces / f"{i}.jpg").write_bytes(encode_png(img))   # PNG bytes
+        for part, _ in CELEBA_PARTS[::2]:
+            cy, cx = rng.randint(64, 448, 2)
+            ry, rx = rng.randint(20, 120, 2)
+            m = ((((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) < 1)
+            m = np.where(m, 255, 0).astype(np.uint8)
+            m[rng.rand(512, 512) < 0.01] = 225
+            (masks / f"{i:05d}_{part}.png").write_bytes(encode_png(m))
+    return faces, root / "masks"
+
+
+def bisenet_phase(outdir) -> dict:
+    """Phase 32: BiSeNet training at the JAX hyperparameters (batch 16,
+    crop 448, 19 classes, SGD momentum 0.9, lr 1e-2): `bisenet_tools
+    preprocess` over 16 synthetic part-mask sets, `FaceMaskDataset` over
+    them and 16 synthetic faces, 5 single-rank steps (s/step, peak GiB),
+    then 2 ranks x 8 with SyncBN against 1 x 16 from the same state (the
+    one-device replay of the 2-rank step, `ohem_shards=2`; TF32 off):
+    loss 1e-5 relative, parameters rtol 2e-4 / atol 2e-6,
+    batch statistics 2e-4 / 1e-5; `bisenet_tools evaluate` and `makeup`
+    over the trained parser; K5/K6 launches (none: the trainer's
+    BatchNorm is flax's, plain torch)."""
+    import numpy as np
+    import torch
+    from consistentid_torch.apps import bisenet_tools
+    from consistentid_torch.io.export_backbones import bisenet_to_torch
+    from consistentid_torch.io.from_jax import tree_from_module
+    from consistentid_torch.io.safetensors_reader import write_safetensors
+    from consistentid_torch.ops import flash_attention as fa
+    from consistentid_torch.parallel import launch
+    from consistentid_torch.testing import tf32_off
+    from consistentid_torch.training.bisenet_train import (
+        FaceMaskDataset, create_bisenet_train_state, make_bisenet_train_step)
+    from consistentid_torch.utils.png import read_array
+
+    counters = launch_counters() + bn_counters()
+    fa.reset_launches(*counters)
+    root = Path(outdir, "bisenet")
+    faces, mask_root = _write_bisenet_data(root)
+    bisenet_tools.main(["preprocess", "--mask-root", str(mask_root),
+                        "--out", str(root / "labels"), "--num-images", "16"])
+    t0 = time.perf_counter()
+    images, labels = next(FaceMaskDataset(str(faces), str(root / "labels"),
+                                          crop=448, seed=0).batches(16))
+    data_s = time.perf_counter() - t0
+    if images.shape != (16, 448, 448, 3) or labels.max() > 255:
+        raise AssertionError(f"BiSeNet data {images.shape} {labels.max()}")
+    state = create_bisenet_train_state(seed=0, device="cuda")
+    step = make_bisenet_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, images, labels)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"BiSeNet losses {losses}")
+    path = root / "start.pt"
+    torch.save({"model": {k: v.cpu() for k, v in
+                          state.model.state_dict().items()},
+                "momentum": {k: v.cpu() for k, v in
+                             state.optimizer.trace.items()},
+                "count": dict(state.optimizer.count), "step": state.step,
+                "images": images, "labels": labels}, path)
+    ref = _bisenet_start(path)
+    with tf32_off():
+        ref, m = make_bisenet_train_step(ohem_shards=2)(ref, images, labels)
+    ref_loss = float(m["loss"])
+    t1 = time.perf_counter()
+    ranks = launch(bisenet_rank, 2, str(path), device_type="cuda")
+    ranks_s = time.perf_counter() - t1
+    want = {k: v.cpu() for k, v in ref.model.state_dict().items()}
+    off = []
+    for r in ranks:
+        if abs(r["loss"] - ref_loss) > 1e-5 * abs(ref_loss):
+            off.append(("loss", r["loss"], ref_loss))
+        for k, v in want.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            stats = k.endswith(("running_mean", "running_var"))
+            if not torch.allclose(r["state"][k], v,
+                                  rtol=2e-4, atol=1e-5 if stats else 2e-6):
+                off.append((k, (r["state"][k] - v).abs().max().item()))
+    if off:
+        raise AssertionError(f"BiSeNet 2 x 8 vs 1 x 16: {off[:6]}")
+    ckpt = root / "face_parsing.safetensors"
+    write_safetensors(str(ckpt), bisenet_to_torch(*tree_from_module(
+        state.model)))
+    bisenet_tools.main(["evaluate", "--images", str(faces), "--out",
+                        str(root / "parsed"), "--bisenet", str(ckpt),
+                        "--batch", "8"])
+    bisenet_tools.main(["makeup", "--image", str(faces / "0.jpg"), "--out",
+                        str(root / "makeup.png"), "--bisenet", str(ckpt)])
+    parsed = sorted((root / "parsed").iterdir())
+    made = read_array(str(root / "makeup.png"))
+    launches = [c.launches for c in counters]
+    if len(parsed) != 16 or made.shape != (512, 512, 3) or any(launches):
+        raise AssertionError(f"BiSeNet tools: {len(parsed)} overlays, "
+                             f"makeup {made.shape}; launches {launches}")
+    out = dict(data_s=data_s, s_per_step=times, losses=losses,
+               peak_gib=peak, sync_loss=ranks[0]["loss"], ref_loss=ref_loss,
+               backend=ranks[0]["backend"], ranks_s=ranks_s,
+               launches=launches)
+    log(f"phase 32 (BiSeNet training, batch 16, crop 448): data "
+        f"{data_s:.2f} s, s/step {[round(t, 4) for t in times]}, peak "
+        f"{peak:.2f} GiB, losses {[round(x, 4) for x in losses]}; 2 ranks x"
+        f" 8 ({ranks[0]['backend']}) against 1 x 16: loss {ranks[0]['loss']}"
+        f" vs {ref_loss}; tools evaluate and makeup done; K1-K6 launches "
+        f"{launches}")
+    return out
 
 
 def main() -> int:
@@ -4583,7 +5146,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         validated = phase("validate, eval_sweep", validate_phase, paths, tmp)
-        fgid = phase("LLaVA, apps.fgid", fgid_phase, paths, tmp, smi)
+        set_dir = Path(tmp, "llava-1.5-7b-hf")
+        fgid = phase("LLaVA, apps.fgid", fgid_phase, paths, tmp, smi,
+                     set_dir)
+        parallel = phase("parallel", parallel_phase, paths, tmp, set_dir)
+        shutil.rmtree(set_dir, ignore_errors=True)
+        bisenet = phase("BiSeNet training", bisenet_phase, tmp)
         cli = phase("train CLIs", train_cli_phase, paths, tmp)
         sdxl_bundle, sdxl = phase("SDXL", sdxl_path)
         int8["sdxl_int8_static"] = sdxl.pop("int8_static")
@@ -4677,6 +5245,18 @@ def main() -> int:
          "launches_per_infer_deepcache":
              infer_variants["deepcache"]["launches"],
          "launches_in_validate_run": validated["launches"][0],
+         "launches_parallel_per_rank": {
+             "tp2_unet_call": parallel["ranks"][1]["unet_call"][
+                 "k1_launches"],
+             "tp2_generate": parallel["ranks"][1]["tp_generate"][
+                 "launches"][0],
+             "dp2_generate_batch": parallel["ranks"][1][
+                 "dp_generate_batch"]["launches"][0],
+             "backend": parallel["ranks"][1]["backend"],
+             "note": f"per rank of 2 on one card: one UNet call (batch 8), "
+                     f"a generate of 2 images and a generate_batch of 4 "
+                     f"requests (2 a rank), {PAR_STEPS} DDIM steps, 512 px"},
+         "launches_per_tp_served_batch": parallel["serve"]["k1_launches"],
          "launches_in_eval_sweep_run": validated["eval_sweep_launches"],
          "launches_note": "launches: per generate (batch 4, 50 DDIM steps,"
                           " 512 px); also per infer call (768x512, 50 "
@@ -4702,6 +5282,9 @@ def main() -> int:
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
          "launches_by_route": train["k2_launches_by_route"],
+         "launches_dp2_train_per_rank_step": [
+             l[1] for l in parallel["ranks"][1]["dp_train"][
+                 "launches_per_step"]],
          **train_launches("k2")},
         {**entry("flash_attention_bwd (K3 + K4, fused)", bwd_src,
                  f"{jax_src}:273", k34, train_rows["K3+K4"],
@@ -4717,6 +5300,9 @@ def main() -> int:
              "dq_run_to_run_rel_l2"],
          "dq_order": dq_order,
          "launches_by_route": train["bwd_launches_by_route"],
+         "launches_dp2_train_per_rank_step": [
+             l[2] for l in parallel["ranks"][1]["dp_train"][
+                 "launches_per_step"]],
          **train_launches("bwd"),
          "kernel_resources": [
              k for k in resources["flash_attention_bwd_sm90"]["kernels"]
@@ -4741,7 +5327,9 @@ def main() -> int:
                     "train_steps": train["launches"][3 + i]}
         kernels.append({**entry(label, bn_src, f"{bn_jax}:{line}", n, rows,
                                 lib),
-                        "main_path_launches": on_paths, "note": note})
+                        "main_path_launches": on_paths,
+                        "launches_in_bisenet_training":
+                            bisenet["launches"][3 + i], "note": note})
     for entry, n in zip(kernels, fgid["launches"]):
         entry["launches_in_fgid_phase"] = n     # phase 30: none
     log(json.dumps({"main_path": main, "unet_path_check": path,
@@ -4752,6 +5340,7 @@ def main() -> int:
                     "dq_order": dq_order, "load": loaded, "infer": inferred,
                     "samplers": samplers, "serve": served, "sdxl": sdxl,
                     "validate": validated, "fgid": fgid,
+                    "parallel": parallel, "bisenet_training": bisenet,
                     "sdxl_infer": sdxl_infer,
                     "tiny_card_vs_cpu": tiny, "unet_profile": profile,
                     "training_path": train, "train_profile": train_profile,

@@ -202,7 +202,7 @@ def run_mask(images_dir: str, out_dir: str, bisenet_path: str,
 
 def run_caption(images_dir: str, out_dir: str,
                 captioner: Optional[Callable] = None,
-                batch_size: int = 1):
+                batch_size: int = 1, write: bool = True):
     """Caption stage; captioner(image_path) -> (caption, facial_caption).
     The default emits the fixed template of the reference's inference path
     (pipline_StableDiffusion_ConsistentID.py:284).
@@ -210,7 +210,9 @@ def run_caption(images_dir: str, out_dir: str,
     batch_size > 1 on a batch-capable captioner (LlavaCaptioner
     .caption_batch) stacks images through one decode per prompt; the last
     short chunk is padded by repeating its last image, so every call has
-    one batch shape."""
+    one batch shape. write=False captions without writing (a
+    tensor-parallel rank other than 0)."""
+    update = _update_json if write else (lambda *a: None)
     paths = _image_paths(images_dir)
     batched = batch_size > 1 and hasattr(captioner, "caption_batch")
     if batched:
@@ -219,7 +221,7 @@ def run_caption(images_dir: str, out_dir: str,
             padded = chunk + [chunk[-1]] * (batch_size - len(chunk))
             results = captioner.caption_batch(padded)[: len(chunk)]
             for p, (caption, detail) in zip(chunk, results):
-                _update_json(out_dir, p, {
+                update(out_dir, p, {
                     "vqa_llva": caption,
                     "vqa_llva_more_face_detail": detail})
         print(f"captioned {len(paths)} images (batch {batch_size})")
@@ -229,7 +231,7 @@ def run_caption(images_dir: str, out_dir: str,
             caption, detail = captioner(p)
         else:
             caption, detail = "a photo of a person.", FACE_CAPTION_TEMPLATE
-        _update_json(out_dir, p, {"vqa_llva": caption,
+        update(out_dir, p, {"vqa_llva": caption,
                                   "vqa_llva_more_face_detail": detail})
     print(f"captioned {len(paths)} images")
 
@@ -290,6 +292,25 @@ def run_fuse(out_dir: str):
     print(f"fused {len(merged)} entries -> JSON_all.json")
 
 
+def _caption(args) -> None:
+    """The caption stage of the parsed flags (one rank of --tp N: every
+    rank decodes, rank 0 writes)."""
+    from ..conditioning.captioner import make_captioner
+
+    captioner = make_captioner(args.captioner_cmd, args.captioner_url,
+                               args.captioner_llava, quant=args.quant,
+                               tp=args.tp, kv_quant=args.kv_quant,
+                               device=args.device)
+    mesh = getattr(captioner, "mesh", None)
+    try:
+        run_caption(args.images, args.out, captioner,
+                    batch_size=args.batch,
+                    write=mesh is None or mesh.is_main)
+    finally:
+        if hasattr(captioner, "close"):
+            captioner.close()
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
@@ -327,8 +348,9 @@ def build_parser():
                                  "token")
             sp.add_argument("--tp", type=int, default=1,
                             help="tensor-parallel degree of the "
-                                 "LlavaCaptioner decoder; only 1 until the "
-                                 "port has parallel/")
+                                 "LlavaCaptioner decoder: N ranks, one card "
+                                 "each (LOCAL_RANK %% cards), started here "
+                                 "unless under torchrun; rank 0 writes")
             sp.add_argument("--kv-quant", action="store_true",
                             help="int8 KV cache for the LlavaCaptioner")
         if stage == "faceid":
@@ -344,19 +366,16 @@ def main(argv=None) -> int:
         run_mask(args.images, args.out, args.bisenet, args.batch_size,
                  device=args.device)
     elif args.stage == "caption":
-        from ..conditioning.captioner import TP_PENDING, make_captioner
-        if args.tp > 1:
-            p.error(f"--tp {args.tp}: {TP_PENDING}")
-        captioner = make_captioner(args.captioner_cmd, args.captioner_url,
-                                   args.captioner_llava, quant=args.quant,
-                                   tp=args.tp, kv_quant=args.kv_quant,
-                                   device=args.device)
-        try:
-            run_caption(args.images, args.out, captioner,
-                        batch_size=args.batch)
-        finally:
-            if hasattr(captioner, "close"):
-                captioner.close()
+        if args.tp > 1 and not args.captioner_llava:
+            p.error("--tp splits the in-repo LLaVA: give --captioner-llava")
+        if args.tp > 1 and "WORLD_SIZE" not in os.environ:
+            import torch
+
+            from ..parallel import launch
+            launch(_caption, args.tp, args,
+                   device_type=torch.device(args.device).type)
+        else:
+            _caption(args)
     elif args.stage == "faceid":
         run_faceid(args.images, args.out, args.arcface, args.batch_size,
                    device=args.device)

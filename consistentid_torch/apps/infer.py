@@ -181,9 +181,10 @@ def to_int8_static(pipe, act_scales, samples, save_path: Optional[str],
     return pipe
 
 
-def load_pipeline(args: argparse.Namespace):
+def load_pipeline(args: argparse.Namespace, mesh=None):
     """The pipeline the flags describe, from the checkpoint files; under
-    int8_static the exact one, to be calibrated (`to_int8_static`)."""
+    int8_static the exact one, to be calibrated (`to_int8_static`). With a
+    `mesh` (the server's --dp/--tp) on the mesh's device."""
     from ..conditioning import CLIPBPETokenizer
     from ..core.config import PipelineConfig
     from ..pipelines.loading import (load_sd15_consistentid,
@@ -195,11 +196,12 @@ def load_pipeline(args: argparse.Namespace):
         guidance_scale=args.guidance_scale,
         start_merge_step=args.start_merge_step, scheduler=args.scheduler,
         cache_interval=args.cache_interval)
+    device = mesh.device if mesh is not None else args.device
     kw = dict(consistentid_path=args.consistentid,
               image_encoder_path=args.image_encoder,
               bisenet_path=args.bisenet, arcface_path=args.arcface,
               scrfd_path=args.scrfd, pipeline_config=config,
-              device=args.device,
+              device=device, mesh=mesh,
               quant="none" if args.quant == "int8_static" else args.quant)
     if args.tokenizer:
         kw["tokenizer"] = CLIPBPETokenizer.from_pretrained(args.tokenizer)
@@ -209,11 +211,11 @@ def load_pipeline(args: argparse.Namespace):
                 args.tokenizer_2)
         if args.tiny:
             from ..testing import tiny_sdxl_bundle
-            kw["bundle"] = tiny_sdxl_bundle(device=args.device)
+            kw["bundle"] = tiny_sdxl_bundle(device=device)
         return load_sdxl_consistentid(args.base, **kw)
     if args.tiny:
         from ..testing import tiny_bundle
-        kw["bundle"] = tiny_bundle(device=args.device)
+        kw["bundle"] = tiny_bundle(device=device)
     if args.init_image:
         from ..pipelines import (ConsistentIDImg2ImgPipeline,
                                  ConsistentIDInpaintPipeline)

@@ -29,7 +29,20 @@ API:
     --calib-image (max-merged) with --calib-prompt, or reads them from
     --act-scales; --save-act-scales writes the calibration's.
 
+Data and tensor parallelism (the JAX server's --dp/--tp, serve.py:293-359):
+`--dp N --tp M` serves over N*M of the visible cards (`--dp 0`: all of
+them, trimmed to a multiple of M), one rank each, started by the port's
+launcher (parallel/launch.py) unless the process already runs under one;
+with one card (or --device cpu) there is no mesh and the server is the
+single-device one, as the JAX server is on one chip. The ranks run in
+lockstep: rank 0 owns the HTTP server and the MicroBatcher, whose buckets
+are multiples of the data size (max_batch rounded up to a full row), and
+broadcasts each bucket's call to the other ranks (`LockstepPipeline`),
+which make the same pipeline call in the same order (`follow`). A request
+rank 0 rejects never reaches them.
+
     python -m consistentid_torch.apps.serve --base ... --port 8000
+    python -m consistentid_torch.apps.serve --base ... --dp 0 --tp 2
 """
 from __future__ import annotations
 
@@ -73,11 +86,26 @@ def _buckets(max_batch: int) -> List[int]:
 class MicroBatcher:
     """Collects requests for up to `window_ms` (or `max_batch`), pads the
     drained batch to the nearest bucket size, and runs it as one
-    generate_batch call on a worker thread."""
+    generate_batch call on a worker thread.
+
+    When the pipeline carries a mesh with a data axis of D > 1, every
+    bucket is a multiple of D ({D, 2D, 4D, ...}, max_batch rounded up to at
+    least one full row), so generate_batch always splits it over the data
+    group (JAX serve.py:74-96); a model axis replicates the batch and does
+    not count."""
 
     def __init__(self, pipeline, max_batch: int = 4, window_ms: float = 30.0):
+        from ..parallel.mesh import data_axis_size
+
         self.pipeline = pipeline
-        self.buckets = _buckets(max_batch)
+        self.mesh_size = data_axis_size(getattr(pipeline, "mesh", None))
+        if self.mesh_size > 1:
+            max_batch = max(max_batch, self.mesh_size)
+            max_batch = -(-max_batch // self.mesh_size) * self.mesh_size
+            self.buckets = [b * self.mesh_size
+                            for b in _buckets(max_batch // self.mesh_size)]
+        else:
+            self.buckets = _buckets(max_batch)
         self.max_batch = max_batch
         self.window_ms = window_ms
         self._queue: List[_Pending] = []
@@ -172,6 +200,76 @@ class MicroBatcher:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=30)
+
+
+# --------------------------------------------------------------- lockstep
+
+_LOCKSTEP_CALLS = ("generate_batch", "generate_batch_async")
+
+
+class LockstepPipeline:
+    """Rank 0's view of the pipeline under a mesh: each generate_batch(
+    _async) call is first broadcast, (name, args, kwargs), to the other
+    ranks over the mesh's control group, then made here. Every other
+    attribute is the pipeline's. `stop()` releases the followers."""
+
+    def __init__(self, pipeline, mesh):
+        self._pipeline = pipeline
+        self._mesh = mesh
+
+    def __getattr__(self, name):
+        attr = getattr(self._pipeline, name)
+        if name not in _LOCKSTEP_CALLS:
+            return attr
+
+        def call(*args, **kwargs):
+            from ..parallel.mesh import broadcast_object
+            broadcast_object((name, args, kwargs), self._mesh)
+            return attr(*args, **kwargs)
+        return call
+
+    def stop(self) -> None:
+        from ..parallel.mesh import broadcast_object
+        broadcast_object(None, self._mesh)
+
+
+def follow(pipeline, mesh) -> int:
+    """A rank other than 0: make every call rank 0 broadcasts, in order,
+    until it stops; returns the number of calls. A call that raises here
+    raised on rank 0 too (the same inputs); it is reported and the loop
+    goes on."""
+    from ..parallel.mesh import broadcast_object
+
+    calls = 0
+    while True:
+        msg = broadcast_object(None, mesh)
+        if msg is None:
+            return calls
+        name, args, kwargs = msg
+        if name not in _LOCKSTEP_CALLS:
+            raise ValueError(f"lockstep call {name!r} is not a serving call")
+        try:
+            out = getattr(pipeline, name)(*args, **kwargs)
+            if callable(out):
+                out()
+        except Exception as e:  # noqa: BLE001
+            print(f"rank {mesh.rank}: {name} failed: {e}", flush=True)
+        calls += 1
+
+
+def mesh_ranks(dp: int, tp: int, visible: int) -> int:
+    """Ranks of `--dp dp --tp tp` over `visible` cards, by the JAX server's
+    rules: dp 0 takes every card (trimmed to a multiple of tp), otherwise
+    the first dp * tp of them; one rank means no mesh."""
+    if dp == 1 and tp == 1:
+        return 1
+    if dp == 0:
+        n = visible - visible % tp if tp > 1 else visible
+    else:
+        n = min(dp * tp, visible)
+    if n > 1 and n % tp:
+        raise SystemExit(f"--tp {tp} does not divide the {n} cards taken")
+    return max(n, 1)
 
 
 def _load_image(b64: str, max_px: int = MAX_IMAGE_PX) -> np.ndarray:
@@ -270,6 +368,14 @@ def build_parser():
     p.add_argument("--max-image-px", type=int, default=MAX_IMAGE_PX)
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every batch bucket at startup")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel serving over N cards (1: one card, "
+                        "0: every visible card): buckets become multiples "
+                        "of N and each is split over the ranks")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel UNet over M cards per replica "
+                        "(attention and feed-forward split over the ranks); "
+                        "composes with --dp: dp*tp cards in all")
     p.add_argument("--calib-image", action="append", default=None,
                    help="--quant int8_static: a representative face "
                         "(.png or .npy) for the startup calibration of the "
@@ -283,9 +389,7 @@ def build_parser():
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    from ..utils.png import read_image
-    from .infer import (check_args, load_pipeline, read_act_scales,
-                        to_int8_static)
+    from .infer import check_args, load_pipeline, read_act_scales
 
     p = build_parser()
     args = p.parse_args(argv)
@@ -315,16 +419,66 @@ def main(argv: Optional[List[str]] = None) -> None:
         p.error("--calib-image calibrates --quant int8_static when no "
                 "--act-scales is given")
     act_scales = read_act_scales(p, args)
-    pipe = load_pipeline(args)
+    visible = 1
+    if args.device.startswith("cuda"):
+        import torch
+        visible = torch.cuda.device_count()
+    ranks = mesh_ranks(args.dp, args.tp, visible)
+    if ranks > 1:
+        import os
+
+        from ..parallel import launch
+        if "WORLD_SIZE" in os.environ:
+            return _serve_rank(args, act_scales)
+        launch(_serve_rank, ranks, args, act_scales, device_type="cuda")
+        return
+    print("serving on one device (no mesh)")
+    _serve(args, load_pipeline(args), act_scales)
+
+
+def _serve_rank(args, act_scales) -> None:
+    """One rank of a mesh server: rank 0 serves HTTP, the others follow."""
+    from ..parallel import initialize_multihost, make_mesh
+    from .infer import load_pipeline
+
+    initialize_multihost()
+    mesh = make_mesh(model=args.tp, device_type="cuda")
+    print(f"rank {mesh.rank}: {mesh.describe()}", flush=True)
+    pipe = load_pipeline(args, mesh)
+    if not mesh.is_main:
+        if args.quant == "int8_static":
+            pipe = _int8_static(args, pipe, act_scales)
+        follow(pipe, mesh)
+        return
+    lockstep = LockstepPipeline(pipe, mesh)
+    try:
+        _serve(args, pipe, act_scales, lockstep)
+    finally:
+        lockstep.stop()
+
+
+def _int8_static(args, pipe, act_scales):
+    from ..utils.png import read_image
+    from .infer import to_int8_static
+
+    if act_scales is None:
+        print("calibrating int8 activation scales on "
+              f"{', '.join(args.calib_image)}")
+    return to_int8_static(
+        pipe, act_scales,
+        [(args.calib_prompt, read_image(im)) for im in
+         args.calib_image or ()],
+        args.save_act_scales)
+
+
+def _serve(args, pipe, act_scales, lockstep=None) -> None:
+    """Calibrate (int8_static), warm up and serve until interrupted; with
+    `lockstep` (rank 0 of a mesh) the batcher calls go through it."""
     if args.quant == "int8_static":
-        if act_scales is None:
-            print("calibrating int8 activation scales on "
-                  f"{', '.join(args.calib_image)}")
-        pipe = to_int8_static(
-            pipe, act_scales,
-            [(args.calib_prompt, read_image(im)) for im in
-             args.calib_image or ()],
-            args.save_act_scales)
+        pipe = _int8_static(args, pipe, act_scales)
+    if lockstep is not None:
+        lockstep._pipeline = pipe
+        pipe = lockstep
     server, batcher = serve(pipe, args.port, args.max_batch, args.window_ms,
                             host=args.host, max_body=args.max_body,
                             max_image_px=args.max_image_px)

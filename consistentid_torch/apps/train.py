@@ -1,19 +1,29 @@
-"""CLI: ConsistentID adapter training on one card (reference train.py +
+"""CLI: ConsistentID adapter training (reference train.py +
 train_bash.sh; the JAX package's apps/train.py), on the card unless
-`--device cpu` is given.
+`--device cpu` is given; data-parallel when started under a launcher.
 
     python -m consistentid_torch.apps.train \\
         --base /path/sd15 --image-encoder /path/vit-h.safetensors \\
         --manifest JSON_all.json --data-root /data/fgid \\
         --output-dir runs/consistentid
+    torchrun --nproc-per-node 8 -m consistentid_torch.apps.train ...
+
+Under torchrun (or any launcher that sets MASTER_ADDR, MASTER_PORT,
+WORLD_SIZE and RANK) every rank joins the process group
+(`parallel.initialize_multihost`; NCCL with a card per rank), drives card
+LOCAL_RANK and reads the same global batch of world * --batch-per-device
+(* --grad-accum-steps) rows, keeping its own rows (`parallel.shard_batch`,
+the accumulation layout's per-example dim); its draws are seeded from
+(seed, step, rank), and gradients and metrics are averaged over the ranks
+before AdamW (training/train_step.py). Rank 0 alone logs and writes
+checkpoints; every rank resumes from the latest one. Without a launcher's
+environment the run is single-device, and a resumed run draws what an
+uninterrupted one would, bit for bit.
 
 Resume is automatic from the latest checkpoint in --output-dir
 (io/checkpoint.py). Training from a cache written by apps.precompute:
-`--encoded --manifest DIR/encoded_manifest.json`. Data parallelism over
-several cards (the JAX CLI's mesh and shard_batch, and its multi-host
-start) waits for the port's parallel/ package on torch.distributed
-(ROADMAP A item 10): this CLI trains on one device. Images and parsing
-maps are PNG (or .npy); there is no JPEG decoder.
+`--encoded --manifest DIR/encoded_manifest.json`. Images and parsing maps
+are PNG (or .npy); there is no JPEG decoder.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ import argparse
 # run draws what an uninterrupted one would at the same step (the JAX CLI
 # folds the step into its key)
 _STEP_SEED_STRIDE = 1_000_003
+# ... plus the rank's share (rank 0 draws what a single-device run draws)
+_RANK_SEED_STRIDE = 7_919
 
 
 def build_parser():
@@ -88,9 +100,10 @@ def build_parser():
     return p
 
 
-def build_bundle(args, config):
-    """The SD1.5 bundle the flags describe, its UNet's IP projections
-    warm-started (and its base weights loaded unless --tiny)."""
+def build_bundle(args, config, device=None):
+    """The SD1.5 bundle the flags describe (on `device`, by default
+    --device), its UNet's IP projections warm-started (and its base weights
+    loaded unless --tiny)."""
     import torch
 
     from ..core import AdapterConfig, sd15_unet_config
@@ -98,7 +111,7 @@ def build_bundle(args, config):
     from ..training import warm_start_ip_projections
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    kw = dict(dtype=dtype, device=args.device, seed=config.seed)
+    kw = dict(dtype=dtype, device=device or args.device, seed=config.seed)
     if args.tiny:
         from ..testing import tiny_bundle
         bundle = tiny_bundle(**kw)
@@ -131,6 +144,7 @@ def main(argv=None):
 
     from ..core import SchedulerConfig, TrainConfig
     from ..io.checkpoint import CheckpointManager
+    from ..parallel import initialize_multihost, make_mesh, shard_batch
     from ..sampling import NoiseSchedule
     from ..training import (EncodedFGIDDataset, FGIDDataset,
                             consistentid_loss_encoded, create_train_state,
@@ -150,7 +164,12 @@ def main(argv=None):
         remat_unet=args.remat != "none",
         remat_policy="dots" if args.remat == "dots" else "full",
         mu_dtype=args.mu_dtype)
-    bundle = build_bundle(args, config)
+    device_type = torch.device(args.device).type
+    initialize_multihost(device_type=device_type)
+    mesh = make_mesh(device_type=device_type)
+    dp = mesh if mesh.size > 1 else None
+    bundle = build_bundle(args, config,
+                          mesh.device if dp is not None else None)
     schedule = NoiseSchedule.create(SchedulerConfig())
     state = create_train_state(bundle, config)
     ckpt = CheckpointManager(args.output_dir)
@@ -158,9 +177,10 @@ def main(argv=None):
     state = ckpt.restore(state)
     spc = max(1, args.steps_per_call)
     loss_fn = consistentid_loss_encoded if args.encoded else None
-    single_step = make_train_step(bundle, schedule, config, loss_fn=loss_fn)
+    single_step = make_train_step(bundle, schedule, config, loss_fn=loss_fn,
+                                  mesh=dp)
     step_fn = (make_multi_train_step(bundle, schedule, config, spc,
-                                     loss_fn=loss_fn) if spc > 1
+                                     loss_fn=loss_fn, mesh=dp) if spc > 1
                else single_step)
 
     if args.encoded:
@@ -171,14 +191,26 @@ def main(argv=None):
             size=args.resolution, image_root=args.data_root,
             seed=config.seed, clip_size=bundle.vision_config.image_size,
             id_dim=bundle.adapter_config.id_embeddings_dim)
-    logger = MetricsLogger(args.output_dir)
+    logger = MetricsLogger(args.output_dir) if mesh.is_main else None
     timer = StepTimer()
     device = bundle.device
-    batch_size = config.batch_per_device * config.grad_accum_steps
+    batch_size = (mesh.data * config.batch_per_device
+                  * config.grad_accum_steps)
+    # the per-example dim of a (global) batch, of a stacked multi-step one
+    example_dim = (1 if config.grad_accum_steps > 1 else 0) + (spc > 1)
 
     def generator(step):
         return torch.Generator(device).manual_seed(
-            config.seed * _STEP_SEED_STRIDE + step)
+            config.seed * _STEP_SEED_STRIDE + step
+            + mesh.rank * _RANK_SEED_STRIDE)
+
+    def log(step, values):
+        if logger is not None:
+            logger.log(step, values)
+
+    def save():
+        if mesh.is_main:
+            ckpt.save(state)
 
     def sync():
         if device.type == "cuda":
@@ -189,6 +221,8 @@ def main(argv=None):
 
     def dispatch(fn, batch, n):
         nonlocal state
+        batch = shard_batch(dp, batch, example_dim if n > 1
+                            else example_dim - (spc > 1))
         timer.data_loaded()
         state, metrics = fn(state, batch, generator=generator(state.step))
         sync()
@@ -240,9 +274,9 @@ def main(argv=None):
         step = state.step
         if step % 10 < step - prev or step % 10 == 0:
             scalar = {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
-            logger.log(step, {**scalar, **timer.summary()})
+            log(step, {**scalar, **timer.summary()})
         if step // config.save_steps > prev // config.save_steps:
-            ckpt.save(state)
+            save()
     if profiler is not None:
         stop_profile()
 
@@ -255,10 +289,11 @@ def main(argv=None):
                 break
             dispatch(single_step, b, 1)
             step = state.step
-        logger.log(step, {"loss": run["losses"][-1],
-                          "flushed_pending": len(pending)})
-    ckpt.save(state)
-    logger.close()
+        log(step, {"loss": run["losses"][-1],
+                   "flushed_pending": len(pending)})
+    save()
+    if logger is not None:
+        logger.close()
     run["state"] = state
     return run
 

@@ -19,7 +19,9 @@ values, numpy images sent as PNG (utils/png.encode_png).
 An image is a uint8 (H, W[, C]) array or a path. `LlavaCaptioner` reads a
 path itself with utils/png.read_image, so a JPEG path is refused (no JPEG
 decoder on the card's machine); the external adapters send the path on.
-`tp > 1` (tensor parallelism) waits for the port's parallel/ package.
+With a mesh (`tp > 1` in `make_captioner`) the decoder is split over the
+mesh's model group (parallel/tensor_parallel.py): each rank reads 1/tp of
+the weights per token, and every rank returns the same captions.
 """
 from __future__ import annotations
 
@@ -39,11 +41,6 @@ CAPTION_PROMPT = ("Please describe the people in the image, including their "
                   "any other distinguishing features.")
 DETAIL_PROMPT = ("Describe this person's facial features for me, including "
                  "        face, ears, eyes, nose, and mouth.")
-# the refusal of mesh / tp > 1 names the queued work
-TP_PENDING = ("tensor parallelism waits for the port's parallel/ package "
-              "(ROADMAP §A, item 4: parallel/ on torch.distributed)")
-
-
 class Captioner(Protocol):
     def __call__(self, image) -> Tuple[str, str]: ...
 
@@ -121,8 +118,10 @@ class LlavaCaptioner:
     conditioning/llama_tokenizer.py). Prompt ids follow upstream
     `tokenizer_image_token`: [bos] + pre + <features> + post without its
     bos; greedy decode is the reference's temperature=0. The model runs
-    in its own dtype (bf16 from `from_pretrained`); `mesh` must be None
-    (`TP_PENDING`)."""
+    in its own dtype (bf16 from `from_pretrained`). With a `mesh` of a
+    model axis above 1 the decoder (after any int8 conversion) is split
+    over it, Megatron-style, into a new decoder; the vision tower and the
+    projector stay whole (JAX :91-120)."""
 
     def __init__(self, model, tokenizer, config=None,
                  max_new_tokens: int = 512,
@@ -132,9 +131,10 @@ class LlavaCaptioner:
                  kv_quant: bool = False, mesh=None):
         from ..models.llama import LlamaForCausalLM, quantize_llama_params
         from ..models.llava import Llava, make_caption_fn
+        from ..parallel.mesh import model_axis_size
+        from ..parallel.tensor_parallel import (apply_llama_tensor_parallel,
+                                                shared_copy)
 
-        if mesh is not None:
-            raise NotImplementedError(TP_PENDING)
         self.config = config or model.config
         if quant == "int8" and not model.llama.quant:
             import torch
@@ -146,6 +146,11 @@ class LlavaCaptioner:
         elif quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r} "
                              "(expected 'none' or 'int8')")
+        if model_axis_size(mesh) > 1:
+            model = Llava(self.config, mm=model.mm,
+                          llama=apply_llama_tensor_parallel(
+                              shared_copy(model.llama), mesh))
+        self.mesh = mesh
         self.model = model
         self.kv_quant = kv_quant
         self.tokenizer = tokenizer
@@ -165,8 +170,6 @@ class LlavaCaptioner:
         from .llama_tokenizer import LlamaTokenizer
 
         cfg = kw.pop("config", None)
-        if kw.get("mesh") is not None:
-            raise NotImplementedError(TP_PENDING)
         model = load_llava(model_dir, cfg, device=device, dtype=dtype)
         tok = LlamaTokenizer.from_pretrained(model_dir)
         return cls(model, tok, config=model.config, **kw)
@@ -348,13 +351,26 @@ def make_captioner(command: Optional[str] = None,
                    kv_quant: bool = False, device="cuda") -> Callable:
     """CLI helper: the captioner of the --captioner-llava / --captioner-cmd
     / --captioner-url flags, the template when none is given.
-    `quant`/`kv_quant`/`device` apply to the in-repo LLaVA only; `tp > 1`
-    raises (`TP_PENDING`)."""
-    if tp > 1:
-        raise NotImplementedError(f"--tp {tp}: {TP_PENDING}")
+    `quant`/`tp`/`kv_quant`/`device` apply to the in-repo LLaVA only;
+    `tp > 1` splits its decoder over a (1, tp) mesh of the process group,
+    which must then have tp ranks (apps.fgid starts them)."""
     if llava_dir:
+        mesh = None
+        if tp > 1:
+            import torch
+
+            from ..parallel import initialize_multihost, make_mesh, world_size
+            device_type = torch.device(device).type
+            initialize_multihost(device_type=device_type)
+            if world_size() != tp:
+                raise ValueError(f"--tp {tp} runs on {tp} ranks; this "
+                                 f"process group has {world_size()} (start "
+                                 f"it under torchrun --nproc-per-node {tp})")
+            mesh = make_mesh(data=1, model=tp, device_type=device_type)
+            device = mesh.device
         return LlavaCaptioner.from_pretrained(
-            llava_dir, device=device, quant=quant, kv_quant=kv_quant)
+            llava_dir, device=device, quant=quant, kv_quant=kv_quant,
+            mesh=mesh)
     if command:
         return SubprocessCaptioner(command)
     if url:

@@ -21,6 +21,9 @@ caller converts device arrays first. The checkpoint loaders
 (pipelines/loading.py) use the same two on the trees that io/convert*.py
 read off reference files. `tree_from_module` is their inverse: a port
 module's weights as such a tree, for io/export_backbones.py to write.
+`bisenet_train_state_from_jax` carries a whole JAX `BiSeNetTrainState`
+(training/bisenet_train.py): the parameters and batch statistics, each
+optax group's SGD momentum trace and update count, and the step.
 """
 from __future__ import annotations
 
@@ -168,3 +171,37 @@ def tree_from_module(module: nn.Module,
                 node(stats, name)["mean" if leaf == "running_mean"
                                   else "var"] = _host(t, dtype)
     return params, stats
+
+
+def _arrays_only(tree: Mapping) -> Dict:
+    """`tree` without the leaves that are not arrays (optax's MaskedNode
+    placeholders of another group's parameters) and the nodes left
+    empty."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            sub = _arrays_only(val)
+            if sub:
+                out[key] = sub
+        elif hasattr(val, "shape"):
+            out[key] = val
+    return out
+
+
+def bisenet_train_state_from_jax(state) -> Dict:
+    """A JAX `BiSeNetTrainState` (numpy leaves) -> {"model": the BiSeNet
+    state dict, "momentum": {parameter name: trace}, "count": {group:
+    optax's update count}, "step": int}, what
+    `training.bisenet_train.create_bisenet_train_state(state=...)` takes.
+    The optimizer state is optax's multi_transform of four
+    chain(add_decayed_weights | identity, sgd) groups."""
+    momentum: Dict[str, torch.Tensor] = {}
+    count: Dict[str, int] = {}
+    for group, masked in state.opt_state.inner_states.items():
+        _, (trace_state, sched_state) = masked.inner_state
+        count[group] = int(np.asarray(sched_state.count))
+        momentum.update(params_from_jax(_arrays_only(trace_state.trace)))
+    return {"model": state_from_jax({"params": state.params,
+                                     "batch_stats": state.batch_stats}),
+            "momentum": momentum, "count": count,
+            "step": int(np.asarray(state.step))}

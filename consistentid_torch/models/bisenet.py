@@ -7,9 +7,15 @@ upsampled with align_corners=True bilinear).
 The modules run NCHW with torch's OIHW weights; `BiSeNet` takes and returns
 NHWC, as the JAX module does. Module and parameter names are the flax ones,
 so `state_from_jax` carries JAX parameters and batch statistics across.
-BatchNorm is inference BatchNorm (running statistics, eps 1e-5), as the JAX
-parser's flax BatchNorm; the fused kernels of ops/fused_bn_act.py are not
-wired in, as the JAX package does not wire its own.
+BatchNorm (`BatchNorm`) is flax's: in eval mode the running statistics
+(eps 1e-5); in train mode (`model.train()`, training/bisenet_train.py) the
+batch's fp32 mean and mean of squares, averaged over a `torch.distributed`
+group when `set_sync_group` gave one (SyncBN: JAX's BatchNorm with
+`axis_name`, the reference's InPlaceABNSync), var = max(0, E[x^2] -
+E[x]^2), and the running statistics updated with flax's momentum,
+ra = 0.9 ra + 0.1 batch, the variance biased. The fused kernels of
+ops/fused_bn_act.py are not wired in, as the JAX package does not wire its
+own.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import resolve_device
+from ..parallel.mesh import all_reduce_sum
 from ..utils.image import imagenet_preprocess
 
+BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
@@ -33,8 +41,70 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     return F.interpolate(x, size=size, mode="bilinear", align_corners=True)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+class _BatchStats(torch.autograd.Function):
+    """(mean, var) per channel of NCHW `x`, flax's way: the batch's
+    mean and mean of squares, averaged over `group` (pmean) when given,
+    var = max(0, E[x^2] - E[x]^2). The backward is the analytic one,
+    (G_mean + 2 G_var (x - mean)) / N with the cotangents summed over the
+    group (psum's transpose) and N the examples of all ranks, so the
+    cancellation of E[x^2] - E[x]^2 never reaches the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        stats = torch.stack([x.mean(dim=(0, 2, 3)),
+                             (x * x).mean(dim=(0, 2, 3))])
+        world = 1
+        if group is not None:
+            world = torch.distributed.get_world_size(group)
+            stats = all_reduce_sum(stats, group) / world
+        mean = stats[0]
+        var = torch.clamp(stats[1] - mean * mean, min=0.0)
+        ctx.save_for_backward(x, mean, var > 0)
+        ctx.group, ctx.n = group, world * (x.numel() // x.shape[1])
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean, positive = ctx.saved_tensors
+        g = torch.stack([g_mean, g_var * positive])
+        if ctx.group is not None:
+            g = all_reduce_sum(g.contiguous(), ctx.group)
+        grad = (g[0][:, None, None] + 2.0 * g[1][:, None, None]
+                * (x - mean[:, None, None])) / ctx.n
+        return grad, None
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """NCHW BatchNorm with flax's training statistics (module docstring).
+    `sync_group`: the torch.distributed group whose ranks' statistics are
+    averaged in train mode (None: this rank's batch alone)."""
+
+    sync_group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # statistics in at least fp32 (flax's force_float32_reductions)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = _BatchStats.apply(xf, self.sync_group)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                (1.0 - BN_MOMENTUM) * mean)
+            self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None]).to(x.dtype)
+
+
+def set_sync_group(model: nn.Module, group) -> None:
+    """Average every BatchNorm's train-mode statistics over `group`."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_group = group
+
+
+def _bn(channels: int) -> BatchNorm:
+    return BatchNorm(channels, eps=BN_EPS)
 
 
 def _conv(cin: int, cout: int, ks: int, stride: int = 1, padding: int = 0,

@@ -59,8 +59,11 @@ Cache = List[Union[LayerKV, QuantLayerKV]]
 
 def init_cache(config: LlamaConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32, kv_quant: bool = False,
-               device=None) -> Cache:
-    shape = (batch, config.num_kv_heads, max_len, config.head_dim)
+               device=None, kv_heads: Optional[int] = None) -> Cache:
+    """`kv_heads`: the KV heads this rank holds (a tensor-parallel rank's
+    share; all of the config's by default)."""
+    shape = (batch, kv_heads or config.num_kv_heads, max_len,
+             config.head_dim)
     if kv_quant:
         sshape = shape[:-1] + (1,)
         return [QuantLayerKV(
@@ -134,6 +137,8 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.config = cfg = config
         d = cfg.head_dim
+        # the heads this module runs (a tensor-parallel rank's share)
+        self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
         self.q_proj = _proj(cfg.hidden_size, cfg.num_heads * d, quant)
         self.k_proj = _proj(cfg.hidden_size, cfg.num_kv_heads * d, quant)
         self.v_proj = _proj(cfg.hidden_size, cfg.num_kv_heads * d, quant)
@@ -144,12 +149,12 @@ class LlamaAttention(nn.Module):
         """x (B, S, E); the new keys and values are written into `kv` at
         `positions` (S,); the first `attn_len` slots are attended, but
         where `mask` (`causal_mask`) is True. Returns (out, kv)."""
-        cfg = self.config
         b, s, _ = x.shape
-        d = cfg.head_dim
-        q = self.q_proj(x).view(b, s, cfg.num_heads, d).transpose(1, 2)
-        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
-        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
+        d = self.config.head_dim
+        heads, kv_heads = self.num_heads, self.num_kv_heads
+        q = self.q_proj(x).view(b, s, heads, d).transpose(1, 2)
+        k = self.k_proj(x).view(b, s, kv_heads, d).transpose(1, 2)
+        v = self.v_proj(x).view(b, s, kv_heads, d).transpose(1, 2)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -167,7 +172,7 @@ class LlamaAttention(nn.Module):
             kv.v.index_copy_(2, positions, v.to(kv.v.dtype))
         kk = kv.k[:, :, :attn_len]
         vv = kv.v[:, :, :attn_len]
-        rep = cfg.num_heads // cfg.num_kv_heads
+        rep = heads // kv_heads
         if rep > 1:
             kk = kk.repeat_interleave(rep, dim=1)
             vv = vv.repeat_interleave(rep, dim=1)
@@ -186,7 +191,7 @@ class LlamaAttention(nn.Module):
         if v_scale is not None:
             probs = probs * v_scale
         out = torch.matmul(probs.to(q.dtype), vv.to(q.dtype)).to(x.dtype)
-        out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * d)
+        out = out.transpose(1, 2).reshape(b, s, heads * d)
         return self.o_proj(out), kv
 
 
@@ -230,6 +235,10 @@ class LlamaForCausalLM(nn.Module):
         self.config = cfg = config
         self.quant = quant
         self.kv_quant = kv_quant
+        # a tensor-parallel rank's KV heads (its cache), and whether its
+        # decode must run eagerly (parallel/tensor_parallel.py)
+        self.kv_heads = cfg.num_kv_heads
+        self.eager_decode = False
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         for i in range(cfg.num_layers):
             self.add_module(f"layers_{i}", LlamaDecoderLayer(cfg, quant))
@@ -256,7 +265,8 @@ class LlamaForCausalLM(nn.Module):
         b, s, _ = inputs_embeds.shape
         if cache is None:
             cache = init_cache(cfg, b, s, dtype=self.dtype,
-                               device=inputs_embeds.device)
+                               device=inputs_embeds.device,
+                               kv_heads=self.kv_heads)
             attn_len = s
         if attn_len is None:
             attn_len = cache[0].k.shape[2]
@@ -316,7 +326,9 @@ def greedy_generate(model: LlamaForCausalLM,
     position held in a (1,) tensor and attends over the whole cache, the
     slots not yet written masked, as JAX's: its shapes never change, so
     on a card the first step runs eagerly and the rest replay one CUDA
-    graph of it. `greedy_generate.events`, when a list, gets the CUDA
+    graph of it (all run eagerly where `model.eager_decode` is set: a
+    tensor-parallel decoder over gloo, whose collectives a graph cannot
+    hold). `greedy_generate.events`, when a list, gets the CUDA
     events around each call's prefill and decode (card only)."""
     cfg = model.config
     src = prompt_embeds if prompt_embeds is not None else prompt
@@ -330,7 +342,7 @@ def greedy_generate(model: LlamaForCausalLM,
     max_len = prompt_len + max_new_tokens
     cache = init_cache(cfg, b, max_len, dtype=model.dtype,
                        kv_quant=model.kv_quant if kv_quant is None
-                       else kv_quant, device=device)
+                       else kv_quant, device=device, kv_heads=model.kv_heads)
     logits, cache = model(prompt if prompt_embeds is None else None,
                           cache=cache, cache_index=0, attn_len=prompt_len,
                           inputs_embeds=prompt_embeds)
@@ -345,7 +357,7 @@ def greedy_generate(model: LlamaForCausalLM,
         tok.copy_(logits[:, -1].argmax(dim=-1))
         pos.add_(1)
 
-    step = advance if device.type != "cuda" else None
+    step = advance if device.type != "cuda" or model.eager_decode else None
     out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long,
                      device=device)
     done = torch.zeros(b, dtype=torch.bool, device=device)

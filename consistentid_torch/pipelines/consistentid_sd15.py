@@ -20,6 +20,16 @@ pipeline; with neither an embedding nor an embedder the embedding is zeros,
 like the reference's no-face fallback. A `safety_checker` hook
 (models/safety_checker.py) runs on the uint8 images. Parameters live in the
 bundle's modules.
+
+`mesh` (parallel/mesh.py; JAX :299-328, 731-739, 834-844): with a model
+axis, every request's UNet (LoRA folded first) is split over the model
+group (parallel/tensor_parallel.py); with a data axis that divides the
+batch, every rank draws the global latents from the same generator, keeps
+its rows (in `generate_batch` whole requests, every conditioning row of a
+request together), denoises and decodes them, and an all-gather returns
+the full batch on every rank, as the JAX call returns the full array. So
+for one seed the images are the single-device ones. A batch the data axis
+does not divide runs whole on every rank (JAX's rule).
 """
 from __future__ import annotations
 
@@ -46,6 +56,9 @@ from ..models import (AutoencoderKL, CLIPTextEncoder, CLIPVisionEncoder, UNet,
 from ..models.layers import calibration
 from ..ops.quant import (act_scales_from_calib, act_scales_to_numpy,
                          merge_act_scales, quantize_state_like)
+from ..parallel.mesh import (all_gather_cat, data_axis_size, model_axis_size,
+                             shard_rows)
+from ..parallel.tensor_parallel import tensor_parallel_unet
 from ..sampling import CondBranch, NoiseSchedule, denoise, make_plan
 from ..utils.image import (center_crop_mask, clip_preprocess,
                            resize_bicubic_uint8, to_uint8)
@@ -75,6 +88,18 @@ def check_quant(quant: str, act_scales) -> None:
             "quant='int8_static' needs calibrated act_scales: run "
             "pipeline.calibrate_int8() or load a saved artifact "
             "(io.quant_scales.load_act_scales)")
+
+
+def check_tensor_parallel(config: UNetConfig, tp: int) -> None:
+    """ValueError unless `tp` divides every transformer level's heads (JAX's
+    GSPMD pads such a split; the port keeps whole heads per rank)."""
+    for level, heads in enumerate(config.num_attention_heads):
+        has_attn = (config.down_block_has_attn[level]
+                    or level == len(config.num_attention_heads) - 1)
+        if has_attn and heads % tp:
+            raise ValueError(f"UNet level {level}: {heads} attention heads "
+                             f"do not split over a tensor-parallel degree "
+                             f"of {tp}")
 
 
 def select_key_regions(parsing_mask_list: Dict) -> Dict:
@@ -286,10 +311,13 @@ class ConsistentIDPipeline:
                  scheduler_config: Optional[SchedulerConfig] = None,
                  face_parser: Optional[Callable] = None,
                  face_embedder: Optional[Callable] = None,
-                 safety_checker: Optional[Callable] = None):
+                 safety_checker: Optional[Callable] = None, mesh=None):
         """face_parser: (H, W, 3) uint8 -> (H, W) label map; face_embedder:
         (H, W, 3) uint8 -> (1, D) embedding; safety_checker: uint8
-        (B, H, W, 3) -> (images, (B,) bool flags)."""
+        (B, H, W, 3) -> (images, (B,) bool flags); mesh: a
+        parallel.Mesh (module docstring)."""
+        check_tensor_parallel(bundle.unet_config, model_axis_size(mesh))
+        self.mesh = mesh
         self.bundle = bundle
         self.tokenizer = tokenizer
         # register the trigger tokens (reference :148-150); idempotent
@@ -606,7 +634,8 @@ class ConsistentIDPipeline:
             time_ids = rep(time_ids)
         clock.mark("encode")
         plan = make_plan(self.schedule, scheduler, num_steps)
-        unet = self.bundle.infer_unet(lora_scale)
+        unet = tensor_parallel_unet(self.bundle.infer_unet(lora_scale),
+                                    self.mesh)
         clock.mark("fold")
         unet_fn, unet_cached_fn = self._unet_fns(unet, ip_scale,
                                                  cache_interval)
@@ -660,19 +689,53 @@ class ConsistentIDPipeline:
              lora_scale: float = 1.0, sync_stages: bool = True,
              cache_interval: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
+        num_steps = num_inference_steps or cfg.num_inference_steps
+        scheduler = scheduler or cfg.scheduler
+        host_cond, latents, noise, split = self._data_shard(
+            host_cond, latents, generator, scheduler, num_steps)
         images = self._generate_core(
             self.device_cond(host_cond), latents,
             guidance_scale if guidance_scale is not None
             else cfg.guidance_scale,
             start_merge_step if start_merge_step is not None
             else cfg.start_merge_step,
-            num_inference_steps or cfg.num_inference_steps,
-            scheduler or cfg.scheduler, ip_scale, lora_scale,
-            generator=generator, sync_stages=sync_stages,
+            num_steps, scheduler, ip_scale, lora_scale,
+            generator=None if noise is not None else generator,
+            noise=noise, sync_stages=sync_stages,
             cache_interval=(cache_interval if cache_interval is not None
                             else cfg.cache_interval))
+        if split:
+            images = all_gather_cat(images, self.mesh.data_group)
         self.last_stage_ms = {"prepare": prepare_ms, **self.last_stage_ms}
         return images
+
+    def _data_shard(self, host_cond: Dict[str, np.ndarray],
+                    latents: torch.Tensor, generator: torch.Generator,
+                    scheduler: str, num_steps: int):
+        """(cond, latents, noise, split): this rank's share of a batch
+        under a data axis that divides it, else everything as given. The
+        cond of one request (generate) stays whole; a batch of requests
+        (generate_batch) is split per request, each key's rows of a
+        request kept together. An ancestral sampler's noise is drawn for
+        the global batch from `generator`, in the single-device order, and
+        sliced."""
+        n = latents.shape[0]
+        if data_axis_size(self.mesh) == 1 or n % self.mesh.data:
+            return host_cond, latents, None, False
+        rows = shard_rows(n, self.mesh)
+        if host_cond["clean_ids"].shape[0] == n:
+            host_cond = {
+                k: v[rows.start * (v.shape[0] // n):
+                     rows.stop * (v.shape[0] // n)]
+                for k, v in host_cond.items()}
+        noise = None
+        plan = make_plan(self.schedule, scheduler, num_steps)
+        if bool((plan.coef_n != 0).any()):
+            noise = torch.stack([
+                torch.randn(latents.shape, generator=generator,
+                            device=latents.device, dtype=latents.dtype)
+                for _ in range(num_steps)])[:, rows]
+        return host_cond, latents[rows], noise, True
 
     def _check(self, out: np.ndarray) -> np.ndarray:
         """uint8 images through the safety checker when one is configured

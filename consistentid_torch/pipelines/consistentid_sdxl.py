@@ -82,7 +82,7 @@ class ConsistentIDXLPipeline(ConsistentIDPipeline):
                  pipeline_config: Optional[PipelineConfig] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  face_parser: Optional[Callable] = None,
-                 face_embedder: Optional[Callable] = None):
+                 face_embedder: Optional[Callable] = None, mesh=None):
         if pipeline_config is None:
             pipeline_config = PipelineConfig(
                 height=1024, width=1024, guidance_scale=7.5,
@@ -90,7 +90,7 @@ class ConsistentIDXLPipeline(ConsistentIDPipeline):
         super().__init__(bundle, tokenizer, pipeline_config=pipeline_config,
                          scheduler_config=scheduler_config,
                          face_parser=face_parser,
-                         face_embedder=face_embedder)
+                         face_embedder=face_embedder, mesh=mesh)
         self.tokenizer_2 = tokenizer_2 or tokenizer
         self.tokenizer_2.add_tokens(["<|image|>", "<|facial|>"])
         # the reference sets its region-mask resolution to 1280 (:570) and

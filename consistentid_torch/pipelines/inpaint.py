@@ -88,6 +88,14 @@ class _InitImagePipeline(ConsistentIDPipeline):
 
     _batch_refusal = "batched generation from an init image is not supported"
 
+    def __init__(self, *args, mesh=None, **kwargs):
+        # the JAX img2img and inpainting pipelines take no mesh either
+        if mesh is not None and mesh.size > 1:
+            raise ValueError("data and tensor parallelism serve text to "
+                             "image only (img2img and inpainting: one "
+                             "device)")
+        super().__init__(*args, **kwargs)
+
     def generate(self, *args, return_float: bool = False, **kwargs):
         """uint8 (1, H, W, 3) numpy images through the safety checker, or
         with return_float the decoded [-1, 1] images on the device; the

@@ -196,6 +196,7 @@ def load_sd15_consistentid(
     device: Union[str, torch.device] = "cuda",
     pipeline_cls: Optional[type] = None,
     quant: str = "none",
+    mesh=None,
 ) -> ConsistentIDPipeline:
     """The SD1.5 ConsistentID pipeline from local checkpoints, on `device`
     (the card unless the caller asks for the CPU).
@@ -214,7 +215,9 @@ def load_sd15_consistentid(
     its own mode unless quant names another. "int8_static" needs
     calibrated scales, so it is refused here as in JAX: load "none", then
     `pipe.calibrate_int8(...)` or `pipe.with_quant("int8_static",
-    act_scales=io.quant_scales.load_act_scales(path))`."""
+    act_scales=io.quant_scales.load_act_scales(path))`.
+    mesh: a parallel.Mesh (data and tensor parallelism, the pipeline's
+    docstring); the bundle is then built on the mesh's device."""
     if pipeline_cls is not None and issubclass(
             pipeline_cls, ConsistentIDControlNetInpaintPipeline):
         raise ValueError(
@@ -227,7 +230,8 @@ def load_sd15_consistentid(
             unet_config=sd15_unet_config(lora_rank=lora_rank,
                                          ip_num_tokens=num_tokens),
             adapter_config=AdapterConfig(num_id_tokens=num_tokens),
-            dtype=resolve_dtype(dtype), device=resolve_device(device))
+            dtype=resolve_dtype(dtype),
+            device=mesh.device if mesh is not None else resolve_device(device))
     if quant != "none":
         bundle = bundle.quantized(quant)
     device = bundle.device
@@ -252,7 +256,7 @@ def load_sd15_consistentid(
     return (pipeline_cls or ConsistentIDPipeline)(
         bundle, tokenizer, pipeline_config=pipeline_config,
         face_parser=face_parser, face_embedder=face_embedder,
-        safety_checker=safety_checker)
+        safety_checker=safety_checker, mesh=mesh)
 
 
 # the reference's method name
@@ -275,6 +279,7 @@ def load_sdxl_consistentid(
     bundle: Optional[SDXLBundle] = None,
     device: Union[str, torch.device] = "cuda",
     quant: str = "none",
+    mesh=None,
 ) -> ConsistentIDXLPipeline:
     """The SDXL ConsistentID pipeline from local checkpoints, on `device`
     (the JAX package's load_sdxl_consistentid; reference
@@ -282,8 +287,8 @@ def load_sdxl_consistentid(
     text_encoder_2 and tokenizer_2 besides SD1.5's files, the VAE decoding
     in fp32 (force_upcast, scaling factor 0.13025), the face stack's
     detector at 512, no safety checker. bundle: as for
-    `load_sd15_consistentid` (e.g. `testing.tiny_sdxl_bundle`); quant: as
-    there."""
+    `load_sd15_consistentid` (e.g. `testing.tiny_sdxl_bundle`); quant and
+    mesh: as there."""
     check_quant(quant, None)
     if bundle is None:
         bundle = SDXLBundle(
@@ -291,7 +296,8 @@ def load_sdxl_consistentid(
                                          ip_num_tokens=num_tokens),
             adapter_config=sdxl_adapter_config(num_id_tokens=num_tokens),
             vae_config=VAEConfig(scaling_factor=0.13025, force_upcast=True),
-            dtype=resolve_dtype(dtype), device=resolve_device(device))
+            dtype=resolve_dtype(dtype),
+            device=mesh.device if mesh is not None else resolve_device(device))
     if quant != "none":
         bundle = bundle.quantized(quant)
     load_models(bundle, base_dir, consistentid_path, image_encoder_path)
@@ -305,4 +311,4 @@ def load_sdxl_consistentid(
     return ConsistentIDXLPipeline(
         bundle, tokenizer, tokenizer_2=tokenizer_2,
         pipeline_config=pipeline_config, face_parser=face_parser,
-        face_embedder=face_embedder)
+        face_embedder=face_embedder, mesh=mesh)

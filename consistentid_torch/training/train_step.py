@@ -1,7 +1,8 @@
-"""ConsistentID adapter training step on one device (SD1.5; SDXL through
-`make_train_step(loss_fn=sdxl_consistentid_loss)`, training/sdxl_loss.py).
+"""ConsistentID adapter training step (SD1.5; SDXL through
+`make_train_step(loss_fn=sdxl_consistentid_loss)`, training/sdxl_loss.py),
+on one device or data-parallel over a mesh.
 
-Counterpart of the JAX package's training/train_step.py without shard_map
+Counterpart of the JAX package's training/train_step.py
 (reference train.py:93-292): VAE encode, CLIP encodes and ViT-H under
 no_grad, the adapters, the UNet with column-gathered attn2 capture, the
 3-term loss, and AdamW (optax semantics, training/optim.py) on the trainable
@@ -13,6 +14,14 @@ stay in the bundle's dtype. Every forward runs in the bundle's dtype
 (`SD15Bundle.call` casts the masters at use), so gradients and AdamW
 moments are fp32, as in the JAX package where flax casts each fp32 weight
 at use. The optimizer updates the masters in place.
+
+With `mesh` (parallel/mesh.py; JAX's shard_map over the data axis) each
+rank passes its shard of the global batch (`parallel.shard_batch`) and
+draws of its own (the CLI seeds them from seed, step and rank, JAX's
+`fold_in(rng, axis_index)`); the gradients and the metrics are averaged
+over the data group (JAX pmean, :347-349) before AdamW, so every rank keeps
+the same masters. A DP step over shards b_0 .. b_{n-1} with draws d_r is
+the single-device grad-accumulation step over the micro-batches b_r.
 
 `make_multi_train_step` takes several optimizer steps per call over
 stacked batches. `TrainState.state_dict` / `load_state_dict` carry what
@@ -34,6 +43,7 @@ from torch import nn
 
 from ..core.config import TrainConfig
 from ..models import localization_layer_names
+from ..parallel.mesh import all_reduce_mean, data_axis_size
 from ..sampling import NoiseSchedule
 from .losses import (collect_attn_probs, localization_loss, masked_mse,
                      resize_bilinear)
@@ -296,7 +306,7 @@ LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 def make_train_step(bundle, schedule: NoiseSchedule, config: TrainConfig,
-                    loss_fn: Optional[LossFn] = None):
+                    loss_fn: Optional[LossFn] = None, mesh=None):
     """The train step: step(state, batch, draws=None, generator=None)
     -> (state, metrics).
 
@@ -305,7 +315,9 @@ def make_train_step(bundle, schedule: NoiseSchedule, config: TrainConfig,
     averaged (the JAX package's lax.scan, accelerate.accumulate in the
     reference), and `draws` is a list of n Draws. Without draws, they are
     drawn from `generator`. The masters and the optimizer state are updated
-    in place; state.step counts the steps."""
+    in place; state.step counts the steps. With `mesh` the batch is this
+    rank's shard, and gradients and metrics are averaged over the data
+    group (module docstring)."""
     loss_impl = loss_fn or consistentid_loss
     accum = config.grad_accum_steps
     t_train = schedule.config.num_train_timesteps
@@ -341,6 +353,11 @@ def make_train_step(bundle, schedule: NoiseSchedule, config: TrainConfig,
         if accum > 1:
             grads = [x / accum for x in grads]
             metrics = {k: v / accum for k, v in metrics.items()}
+        if data_axis_size(mesh) > 1:
+            grads = all_reduce_mean(list(grads), mesh.data_group)
+            keys = list(metrics)
+            metrics = dict(zip(keys, all_reduce_mean(
+                [metrics[k].detach() for k in keys], mesh.data_group)))
         state.optimizer.step(grads)
         state.step += 1
         return state, metrics
@@ -350,7 +367,7 @@ def make_train_step(bundle, schedule: NoiseSchedule, config: TrainConfig,
 
 def make_multi_train_step(bundle, schedule: NoiseSchedule,
                           config: TrainConfig, n_steps: int,
-                          loss_fn: Optional[LossFn] = None):
+                          loss_fn: Optional[LossFn] = None, mesh=None):
     """N optimizer steps per call: multi(state, batches, draws=None,
     generator=None) -> (state, metrics stacked (n_steps,)).
 
@@ -361,7 +378,7 @@ def make_multi_train_step(bundle, schedule: NoiseSchedule,
     in step order. So the N steps equal N calls of `make_train_step` on
     the same draws (the JAX package's lax.scan that folds one rng per
     step)."""
-    step = make_train_step(bundle, schedule, config, loss_fn)
+    step = make_train_step(bundle, schedule, config, loss_fn, mesh)
 
     def multi(state: TrainState, batches: Mapping, draws=None,
               generator: Optional[torch.Generator] = None):

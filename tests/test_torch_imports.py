@@ -48,3 +48,26 @@ def test_no_source_imports_jax():
                 continue
             assert not set(roots) & set(FORBIDDEN + NOT_ON_THE_CARD), (
                 path, roots)
+
+
+# the modules of the data/tensor-parallel and BiSeNet-training slice, held
+# by the two tests above like every other module of the port
+SLICE_13 = ("consistentid_torch.parallel", "consistentid_torch.parallel.mesh",
+            "consistentid_torch.parallel.tensor_parallel",
+            "consistentid_torch.parallel.launch",
+            "consistentid_torch.training.bisenet_train",
+            "consistentid_torch.apps.bisenet_tools")
+
+
+def test_parallel_and_bisenet_modules_stand_alone():
+    code = ("import importlib, sys\n"
+            f"for name in {SLICE_13!r}:\n"
+            "    importlib.import_module(name)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + NOT_ON_THE_CARD!r}]\n"
+            "print(sorted(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

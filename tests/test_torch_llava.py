@@ -431,10 +431,16 @@ def test_captioner_refuses_jpeg_and_mesh(captioners, model, tmp_path):
     Image.fromarray(_faces(1)[0]).save(path)
     with pytest.raises(ValueError, match="JPEG"):
         pcap(str(path))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        captioner.LlavaCaptioner(model, pcap.tokenizer, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        captioner.make_captioner(llava_dir=str(tmp_path), tp=2)
+    # a mesh without a model axis keeps the decoder whole; --tp 2 needs a
+    # process group of 2 ranks (tests/test_torch_parallel.py runs one)
+    from consistentid_torch.parallel import make_mesh
+    whole = captioner.LlavaCaptioner(model, pcap.tokenizer,
+                                     mesh=make_mesh(device_type="cpu"))
+    assert whole.model.llama is model.llama
+    with pytest.warns(UserWarning, match="world size 1"), \
+            pytest.raises(ValueError, match="2 ranks"):
+        captioner.make_captioner(llava_dir=str(tmp_path), tp=2,
+                                 device="cpu")
 
 
 # --------------------------------------------------- converters, loading
