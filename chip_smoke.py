@@ -199,6 +199,18 @@ Phases, each printing its result; any failure exits non-zero:
      batch 16 (s/step, peak GiB), 2 ranks x 8 with SyncBN against the
      one-device replay 1 x 16 from the same state, `bisenet_tools evaluate`
      and `makeup` over the trained parser; K1-K6 launched 0 times.
+ 33. demos (`demos_phase`, after phase 15, on the set of phase 12): the
+     gradio demo, `apps.demo.main` with SCRFD, ArcFace and BiSeNet, under a
+     stand-in `gradio` module (the card's machine has no gradio; it stands
+     for the UI toolkit only): one request through the interface's callback
+     at the UI's defaults (50 DDIM steps, merge 30, CFG 5, seed 2024, 512
+     px) from the 512 px face, a (512, 512, 3) uint8 image within one grey
+     level of `pipe.generate` with the same arguments, K1 500 on sm90; then
+     the examples' PyTorch twins through runpy with --device cuda:
+     minimal_demo_torch.py and controlnet_demo_torch.py at their tiny fp32
+     sizes (K1 12 and 16 on the f32 route), inpaint_demo_torch.py
+     --full-size on the set from PNG files (512 px, strength 1, 50 DDIM
+     steps, K1 500 on sm90); each PNG's shape checked.
 Phase 9 runs after phase 3, phases 21, 22, 24, 25 and then 10 to 17 after
 phase 5 (before the bundle is trained). Phase 3 holds K2 and K3 + K4 at SDXL training's T1 =
 (1, 10, 4096, 64) and T2 = (1, 20, 1024, 64) too.
@@ -2284,6 +2296,174 @@ def serve_phase(pipe):
         server.shutdown()
         server.server_close()
         batcher.stop()
+
+
+# ---------------------------------------------------------------- demos
+
+def stand_in_gradio():
+    """A `gradio` module for `apps.demo.main` on a machine without gradio:
+    each widget and the Interface record their arguments (the Interface
+    itself in `interfaces`) and `launch` returns at once. It stands for
+    the UI toolkit only; the pipeline, the card and its kernels are the
+    real ones."""
+    import types
+    gr = types.ModuleType("gradio")
+    gr.interfaces = []
+
+    class Widget:
+        def __init__(self, *args, **kwargs):
+            self.args, self.kwargs = args, kwargs
+
+    for name in ("Image", "Textbox", "Slider", "Number"):
+        setattr(gr, name, type(name, (Widget,), {}))
+
+    class Interface(Widget):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.launched = None
+            gr.interfaces.append(self)
+
+        def launch(self, **kwargs):
+            self.launched = kwargs
+
+    gr.Interface = Interface
+    return gr
+
+
+def run_example(script: str, *argv):
+    """examples/<script> through runpy, as `python examples/<script>
+    --device cuda <argv>` runs it, its main's return value kept (runpy
+    under another name, then its main with that argv)."""
+    import runpy
+    namespace = runpy.run_path(str(REPO / "examples" / script),
+                               run_name="example_twin")
+    old = sys.argv
+    sys.argv = [script, "--device", "cuda", *argv]
+    try:
+        return namespace["main"]()
+    finally:
+        sys.argv = old
+
+
+def demos_phase(paths, outdir):
+    """The gradio demo and the examples' twins on the card. (a)
+    `apps.demo.main` on the written set (SCRFD, ArcFace, BiSeNet, the
+    safety checker) under a stand-in gradio: one request through the
+    interface's callback at the UI's defaults (50 DDIM steps, merge 30,
+    CFG 5, seed 2024, 512 px) from the 512 px face: a (512, 512, 3) uint8
+    image within one grey level of `pipe.generate` with the same arguments,
+    K1 500 on sm90. (b) examples/minimal_demo_torch.py (tiny fp32 bundle,
+    64 px, 4 steps: the level-0 self-attention's 1024 tokens cross the
+    flash cutover, K1 12 on the f32 route; one train step at 32 px, under
+    it) and controlnet_demo_torch.py (K1 16 on f32: 3 UNet and 1 ControlNet
+    attention a step), and inpaint_demo_torch.py --full-size on the set
+    from PNG files (the face parsed by BiSeNet, embedded by SCRFD and
+    ArcFace; 512 px, strength 1, 50 DDIM steps: K1 500 on sm90)."""
+    import math
+    import numpy as np
+    from consistentid_torch.apps import demo
+    from consistentid_torch.utils.png import decode_png, encode_png
+
+    face = face_inputs()[0]
+    set_flags = ["--consistentid", paths["consistentid_path"],
+            "--image-encoder", paths["image_encoder_path"],
+            "--bisenet", paths["bisenet_path"],
+            "--arcface", paths["arcface_path"],
+            "--scrfd", paths["scrfd_path"]]
+    gr = stand_in_gradio()
+    sys.modules["gradio"] = gr
+    try:
+        t0 = time.perf_counter()
+        pipe = demo.main(["--base", paths["base"], *set_flags])
+        load_s = time.perf_counter() - t0
+    finally:
+        del sys.modules["gradio"]
+    iface, = gr.interfaces
+    ui = {w.kwargs["label"]: w.kwargs.get("value")
+          for w in iface.kwargs["inputs"][1:]}
+    request = (ui["negative prompt"], ui["steps"], ui["start merge step"],
+               ui["guidance scale"], ui["seed"])
+    if request != ("", 50, 30, 5.0, 2024) or iface.launched != {
+            "server_port": 7860}:
+        raise AssertionError(f"demo: UI defaults {request}, launch "
+                             f"{iface.launched}")
+    img, request_s, launches, by_route = counted(
+        lambda: iface.kwargs["fn"](face, PROMPT, *request))
+    expect_k1("demo request", launches, by_route, 500)
+    flags = np.asarray(pipe.last_nsfw_flags).tolist()
+    if img.shape != (512, 512, 3) or img.dtype != np.uint8:
+        raise AssertionError(f"demo: image {img.shape} {img.dtype}")
+    want, generate_s, _, _ = counted(lambda: pipe.generate(
+        PROMPT, face, negative_prompt="", num_inference_steps=50,
+        start_merge_step=30, guidance_scale=5.0, seed=2024)[0])
+    diff = int(np.abs(img.astype(int) - want.astype(int)).max())
+    if diff > 1:
+        raise AssertionError(f"demo: the request's image is off generate's "
+                             f"by {diff} grey levels")
+    stages = {k: round(v, 1) for k, v in pipe.last_stage_ms.items()}
+    log(f"demo (apps.demo.main, stand-in gradio; ddim, 50 steps, 512 px, "
+        f"CFG 5, merge 30, seed 2024, from the photo): load {load_s:.2f} s; "
+        f"request {request_s:.3f} s, generate {generate_s:.3f} s, stages ms "
+        f"{stages}, flags {flags}, K1 {launches[0]} {by_route}; off "
+        f"generate's image by {diff} grey levels "
+        f"({'exact' if diff == 0 else 'not exact'})")
+    out = dict(demo=dict(load_s=load_s, request_s=request_s,
+                         generate_s=generate_s, stage_ms=stages,
+                         launches=launches[0], launches_by_route=by_route,
+                         nsfw_flags=flags, max_diff_vs_generate=diff))
+    del pipe, iface, gr
+    gc.collect()
+
+    twins = {}
+    png = str(Path(outdir) / "minimal.png")
+    metrics, s, launches, by_route = counted(lambda: run_example(
+        "minimal_demo_torch.py", "--out", png))
+    twins["minimal"] = dict(seconds=s, launches=launches,
+                            launches_by_route=by_route, loss=metrics["loss"])
+    if not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"minimal twin: loss {metrics['loss']}")
+    png = str(Path(outdir) / "controlnet.png")
+    _, s, launches, by_route = counted(lambda: run_example(
+        "controlnet_demo_torch.py", "--out", png))
+    twins["controlnet"] = dict(seconds=s, launches=launches,
+                               launches_by_route=by_route)
+    files = {}
+    for name, arr in zip(("init", "mask"), init_image_inputs(512, 512)):
+        files[name] = str(Path(outdir) / f"twin_{name}.png")
+        with open(files[name], "wb") as f:
+            f.write(encode_png(arr))
+    png = str(Path(outdir) / "inpaint.png")
+    pipe, s, launches, by_route = counted(lambda: run_example(
+        "inpaint_demo_torch.py", "--full-size", "--base", paths["base"],
+        *set_flags, "--image", str(Path(outdir) / "face.png"), "--init-image",
+        files["init"], "--mask-image", files["mask"], "--strength", "1.0",
+        "--out", png))
+    twins["inpaint"] = dict(
+        seconds=s, launches=launches, launches_by_route=by_route,
+        stage_ms={k: round(v, 1) for k, v in pipe.last_stage_ms.items()})
+    del pipe
+    gc.collect()
+    for name, n, route, size in (("minimal", 12, "f32", 64),
+                                 ("controlnet", 16, "f32", 64),
+                                 ("inpaint", 500, "sm90", 512)):
+        r = twins[name]
+        with open(str(Path(outdir) / f"{name}.png"), "rb") as f:
+            r["png_shape"] = list(decode_png(f.read()).shape)
+        if r["png_shape"] != [size, size, 3]:
+            raise AssertionError(f"{name} twin: PNG {r['png_shape']}")
+        if (r["launches"] != [n, 0, 0, 0, 0]
+                or r["launches_by_route"][route] != n):
+            raise AssertionError(
+                f"{name} twin: launches K1, K2, K3 + K4, K5, K6 "
+                f"{r['launches']} (K1 {r['launches_by_route']}), expected "
+                f"K1 {n} on {route} only")
+        log(f"{name} twin (--device cuda): {r['seconds']:.3f} s with its "
+            f"build or load, PNG {r['png_shape']}, K1 {r['launches'][0]} "
+            f"{r['launches_by_route']}"
+            + (f", loss {r['loss']:.5f}" if "loss" in r else "")
+            + (f", stages ms {r['stage_ms']}" if "stage_ms" in r else ""))
+    out["twins"] = twins
+    return out
 
 
 SDXL_K1_PER_UNET_CALL = 70   # 10 at level 1 (X1), 60 at level 2 and mid (X2)
@@ -5142,6 +5322,9 @@ def main() -> int:
         del infer_pipe
         gc.collect()  # the server's handler objects hold it in cycles
         torch.cuda.empty_cache()
+        demos = phase("demos", demos_phase, paths, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
         int8["serve"] = phase("serve int8", serve_int8_phase, paths, tmp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5258,6 +5441,13 @@ def main() -> int:
                      f"requests (2 a rank), {PAR_STEPS} DDIM steps, 512 px"},
          "launches_per_tp_served_batch": parallel["serve"]["k1_launches"],
          "launches_in_eval_sweep_run": validated["eval_sweep_launches"],
+         "launches_per_demo_request": demos["demo"]["launches"],
+         "demo_launches_by_route": demos["demo"]["launches_by_route"],
+         "launches_per_example_twin": {
+             name: r["launches"][0] for name, r in demos["twins"].items()},
+         "example_twin_launches_by_route": {
+             name: r["launches_by_route"]
+             for name, r in demos["twins"].items()},
          "launches_note": "launches: per generate (batch 4, 50 DDIM steps,"
                           " 512 px); also per infer call (768x512, 50 "
                           "Euler steps), per served batch (512 px, 50 "
@@ -5277,7 +5467,12 @@ def main() -> int:
                           "int8 calibration, each serving mode's warm-up and"
                           " batch-4 request) and one apps.eval_sweep run "
                           "(two batches of 4; 512 px, 50 DDIM steps); C0, "
-                          "C1: the init-image paths' shapes"},
+                          "C1: the init-image paths' shapes; per demo "
+                          "request (apps.demo, 512 px, 50 DDIM steps) and "
+                          "per run of each examples/*_demo_torch.py twin "
+                          "(minimal and ControlNet tiny fp32 at 64 px, 4 "
+                          "steps, on the f32 route; inpaint --full-size at "
+                          "512 px, 50 DDIM steps)"},
         {**entry("flash_attention_fwd_lse (K2)", fwd_src, f"{jax_src}:234",
                  k2, train_rows["K2"], "sdpa forward, inputs requiring grad"),
          **sm90_info, "mma_ms": train_rows["K2"][0]["mma_ms"],
@@ -5338,7 +5533,8 @@ def main() -> int:
                     "infer_variants": infer_variants,
                     "perception": perception, "photo_generate": photo,
                     "dq_order": dq_order, "load": loaded, "infer": inferred,
-                    "samplers": samplers, "serve": served, "sdxl": sdxl,
+                    "samplers": samplers, "serve": served,
+                    "demos": demos, "sdxl": sdxl,
                     "validate": validated, "fgid": fgid,
                     "parallel": parallel, "bisenet_training": bisenet,
                     "sdxl_infer": sdxl_infer,

@@ -14,7 +14,8 @@ the card against the CPU; PIL's resample on the card against the CPU; the
 eval scorers (CLIP-T, FaceSim) and the PhotoMaker encoder on the card
 against the CPU, and the validation CLI's tiny self-test on the card; the
 tiny LLaVA captioner's ids, int8 and int8-KV decode (torch._int_mm at m =
-1) and apps.fgid's mask and faceid stages on the card against the CPU.
+1) and apps.fgid's mask and faceid stages on the card against the CPU; the
+gradio demo's request callback on the tiny bundle, card against CPU.
 Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs on a machine without it:
 
@@ -1204,3 +1205,69 @@ def test_fgid_mask_and_faceid_card_vs_cpu(cuda_generator, tmp_path):
         want, got = (np.frombuffer(b, np.float32) for b in read["faceid"])
         assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-5
     assert agree >= PERCEPTION_LABEL_AGREEMENT * total
+
+
+# ------------------------------------------------------------------ demo
+
+@pytest.mark.cuda
+def test_demo_callback_on_card(cuda_generator):
+    """The gradio demo's request callback (apps.demo.demo_callback) on the
+    tiny fp32 bundle on the card, its face parsed and embedded by stub
+    hooks, 3 DDIM steps across the merge step at 1, 64 px (the level-0
+    self-attention crosses the flash cutover: 9 K1 launches on the fp32
+    route): a (64, 64, 3) uint8 image, `generate`'s first image bit for
+    bit; and with the initial latents injected, TF32 off, the decoded
+    image within the CPU parity tests' 1e-3 on [-1, 1] of the same request
+    on the CPU."""
+    import numpy as np
+
+    from consistentid_torch.apps.demo import demo_callback
+    from consistentid_torch.core import PipelineConfig
+    from consistentid_torch.pipelines import ConsistentIDPipeline
+    from consistentid_torch.testing import (synthetic_clip_tokenizer,
+                                            tiny_bundle)
+
+    rng = np.random.default_rng(0)
+    face = rng.integers(0, 255, (64, 64, 3), np.uint8)
+    labels = np.zeros((64, 64), np.uint8)
+    labels[8:44, 10:50] = 1
+    labels[26:31, 28:34] = 10
+    faceid = rng.standard_normal((1, 16)).astype(np.float32)
+    latents = torch.from_numpy(rng.standard_normal((1, 32, 32, 4),
+                                                   np.float32))
+    request = (face, "a photo of a man", "blurry", 3.0, 1.0, 5.0, 2024.0)
+    cpu = tiny_bundle(device="cpu", seed=3)
+    gpu = tiny_bundle(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    wrapper = port_flash.flash_attention_fwd
+    floats = []
+    with tf32_off():
+        for bundle in (cpu, gpu):
+            pipe = ConsistentIDPipeline(
+                bundle, synthetic_clip_tokenizer(),
+                pipeline_config=PipelineConfig(height=64, width=64),
+                face_parser=lambda image: labels,
+                face_embedder=lambda image: faceid)
+            run = demo_callback(pipe)
+            if bundle is gpu:
+                routes = dict(wrapper.launches_by_route)
+                img = run(*request)
+                torch.cuda.synchronize()
+                moved = {r: n - routes[r]
+                         for r, n in wrapper.launches_by_route.items()}
+                assert moved == {r: 9 * (r == "f32") for r in moved}
+                assert img.shape == (64, 64, 3) and img.dtype == np.uint8
+                np.testing.assert_array_equal(img, pipe.generate(
+                    "a photo of a man", face, negative_prompt="blurry",
+                    num_inference_steps=3, start_merge_step=1,
+                    guidance_scale=5.0, seed=2024)[0])
+            real = pipe._run
+
+            def injected(cond, drawn, *rest, real=real, **kw):
+                out = real(cond, latents.to(drawn.device), *rest, **kw)
+                floats.append(out.float().cpu())
+                return out
+
+            pipe._run = injected
+            run(*request)
+    torch.testing.assert_close(floats[1], floats[0], rtol=0, atol=1e-3)
