@@ -52,10 +52,15 @@ Phases, each printing its result; any failure exits non-zero:
   8. the tiny fp32 bundle's generate core on the card against the CPU;
   9. K5 and K6 (fused BatchNorm + activation) against their plain versions
      at BiSeNet's stem shapes and at ragged shapes, all four activations,
-     by relative L2 (controls: the last chunk of rows not summed, the last
-     channels left unnormalized), timed beside their bounds and the library
-     calls (torch.var_mean; F.batch_norm then the activation), each on
-     copies of its input in turn, so that it reads them from HBM;
+     by relative L2 (controls: the last cluster's rows not summed, the last
+     channels left unnormalized), K5 bit for bit against the plain moments
+     summed in its order, over repeated calls and on a second stream; the
+     device kernels of one call each of K5, K6 and fused_bn_act
+     (torch.profiler: 1, 1, 2); K5, K6 and fused_bn_act timed beside their
+     bounds and the library calls (torch.var_mean; F.batch_norm then the
+     activation), each on copies of its input in turn, so that it reads
+     them from HBM, with the card's own streaming ceilings (a copy of x, a
+     sum of x) and its launch floor (a one-element add) in the same run;
  10. perception at full width, fp32: SCRFD-10g at 640, iresnet50 at 112,
      BiSeNet with 19 classes at 512 (random weights from a seed) on the
      face; each hook timed; the card against the CPU (TF32 off);
@@ -224,6 +229,7 @@ run's JSON carries the seconds of each phase as `phase_s`.
 The last three lines are the kernels' JSON ({"kernels": [...]}), the
 nvidia-smi reading and {"ok": true, "device": {...}}.
 """
+import dataclasses
 import gc
 import itertools
 import json
@@ -1520,15 +1526,18 @@ def tiny_reference_check():
 
 
 def bn_bound(rows, c, itemsize, kind):
-    """Least time (ms) of K5 ("moments") or K6 ("apply") and what bounds it.
-    Bytes: x read once (K5: mean and var written; K6: y written, four fp32
-    (C,) vectors read). Operations, fp32 outside the tensor cores: K5 an add
-    and an FMA per element (3 FLOPs), K6 a subtract, two multiplies, an add
-    and the activation (5 FLOPs counted)."""
+    """Least time (ms) of K5 ("moments"), K6 ("apply") or both in one
+    function ("fused") and what bounds it. Bytes: x read once (K5: mean and
+    var written; K6: y written, four fp32 (C,) vectors read; fused: y,
+    mean and var written, scale and bias read). Operations, fp32 outside
+    the tensor cores: K5 an add, a multiply and an add per element (3
+    FLOPs), K6 a subtract, two multiplies, an add and the activation (5
+    FLOPs counted), fused both."""
     n = rows * c
     nbytes = {"moments": n * itemsize + 2 * c * 4,
-              "apply": 2 * n * itemsize + 4 * c * 4}[kind]
-    flops = {"moments": 3 * n, "apply": 5 * n}[kind]
+              "apply": 2 * n * itemsize + 4 * c * 4,
+              "fused": 2 * n * itemsize + 4 * c * 4}[kind]
+    flops = {"moments": 3 * n, "apply": 5 * n, "fused": 8 * n}[kind]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP32_FLOPS * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
@@ -1544,27 +1553,51 @@ def rotation(x, l2_bytes: int, most: int = 64):
     return [x] + [x.clone() for _ in range(n - 1)]
 
 
+def bn_device_kernels(fn, calls: int = 3):
+    """The names of the device kernels torch.profiler records over `calls`
+    calls of fn, after one call outside it and a first profiler session
+    that is thrown away (the first session of a process can miss the
+    kernels of its first moments)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def bn_kernel_phase():
     """K5 and K6 against their plain versions on the card: mean and var, and
-    the output for each activation, by relative L2 with a control each;
-    then kernel, plain version and library call timed at each shape by
-    `cuda_ms`, on copies of x in turn (`rotation`; K6 with leaky_relu, the
-    JAX default). The (16, 224, 224, 64) fp32 case is
-    BiSeNet training's stem BatchNorm at batch 16, 448 px crops; the
-    (1, 256, 256, 64) cases the parser's stem at 512 px."""
+    the output for each activation, by relative L2 with a control each, and
+    K5's bits against `moments_in_kernel_order` over three calls and one on
+    a second stream; the device kernels a call of K5, K6 and fused_bn_act
+    launch (torch.profiler, at P fp32: 1, 1 and 2); then K5, K6 and
+    fused_bn_act timed at each shape by `cuda_ms` beside the plain version
+    and the library call, on copies of x in turn (`rotation`; K6 with
+    leaky_relu, the JAX default), with the card's ceilings in the same
+    run: a copy of x into y (K6's bytes), x.sum() (K5's) and a one-element
+    add (the launch floor). The (16, 224, 224, 64) fp32 case is BiSeNet
+    training's stem BatchNorm at batch 16, 448 px crops; the (1, 256, 256,
+    64) cases (P) the parser's stem at 512 px."""
     import torch
     import torch.nn.functional as F
     from consistentid_torch.ops import fused_bn_act as bn
     from consistentid_torch.testing import (KERNEL_BN_APPLY_REL_L2_16BIT,
                                             KERNEL_BN_APPLY_REL_L2_FP32,
                                             KERNEL_BN_MOMENTS_REL_L2,
-                                            moments_without_last_chunk,
+                                            moments_in_kernel_order,
+                                            moments_without_last_cluster,
                                             rel_l2,
                                             unnormalized_last_channels)
 
     gen = torch.Generator("cuda").manual_seed(7)
-    props = torch.cuda.get_device_properties(0)
-    sms, l2_bytes = props.multi_processor_count, props.L2_cache_size
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
     cases = [
         ("bisenet_train_stem", (16, 224, 224, 64), torch.float32, 20),
         ("parser_stem_fp32", (1, 256, 256, 64), torch.float32, 100),
@@ -1572,8 +1605,9 @@ def bn_kernel_phase():
         ("ragged_c24", (2, 9, 7, 24), torch.float32, 100),
         ("ragged_c19", (1, 33, 17, 19), torch.bfloat16, 100),
     ]
-    rows_out = {"K5": [], "K6": []}
-    fused_launches = None
+    rows_out = {"K5": [], "K6": [], "fused": []}
+    fused_launches = counts = None
+    one = torch.ones(1, device="cuda")
     for name, shape, dtype, iters in cases:
         c = shape[-1]
         rows = math.prod(shape) // c
@@ -1581,17 +1615,46 @@ def bn_kernel_phase():
              + torch.randn(c, generator=gen, device="cuda")).to(dtype)
         scale = torch.rand(c, generator=gen, device="cuda") + 0.5
         bias = torch.randn(c, generator=gen, device="cuda")
+        plan = bn.plan_for(x)
         if fused_launches is None:     # the kernels' launches per call
             before = (bn.batch_moments.launches, bn.apply_bn_act.launches)
             bn.fused_bn_act(x, scale, bias)
             fused_launches = (bn.batch_moments.launches - before[0],
                               bn.apply_bn_act.launches - before[1])
+        if name == "parser_stem_fp32":   # device kernels a call, profiled
+            st = bn.batch_moments_plain(x)
+            per_call = {
+                "batch_moments": bn_device_kernels(
+                    lambda: bn.batch_moments(x)),
+                "apply_bn_act": bn_device_kernels(
+                    lambda: bn.apply_bn_act(x, *st, scale, bias)),
+                "fused_bn_act": bn_device_kernels(
+                    lambda: bn.fused_bn_act(x, scale, bias))}
+            counts = {k: len(v) / 3 for k, v in per_call.items()}
+            per_call = {k: sorted(set(v)) for k, v in per_call.items()}
+            log(f"K5/K6 device kernels a call (torch.profiler over 3 calls,"
+                f" {name}): {counts} {per_call}")
+            if counts != {"batch_moments": 1, "apply_bn_act": 1,
+                          "fused_bn_act": 2}:
+                raise AssertionError(f"K5/K6 device kernels a call: {counts}")
         mean, var = bn.batch_moments(x)
+        runs = [bn.batch_moments(x) for _ in range(2)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            runs.append(bn.batch_moments(x))
         torch.cuda.synchronize()
+        ordered = moments_in_kernel_order(x, plan)
+        bits = all(torch.equal(m, ordered[0]) and torch.equal(v, ordered[1])
+                   for m, v in [(mean, var), *runs])
+        if not bits:
+            raise AssertionError(
+                f"K5 {name}: the bits differ between calls or from "
+                f"moments_in_kernel_order (max |diff| "
+                f"{(mean - ordered[0]).abs().max().item():.3g}, "
+                f"{(var - ordered[1]).abs().max().item():.3g})")
         ref_mean, ref_var = bn.batch_moments_plain(x)
-        chunk = bn.moment_chunk_rows(rows, c, dtype, x.data_ptr() % 16 == 0,
-                                     sms)
-        ctl_mean, ctl_var = moments_without_last_chunk(x, chunk)
+        ctl_mean, ctl_var = moments_without_last_cluster(x, plan)
         m_rel = max(rel_l2(mean, ref_mean), rel_l2(var, ref_var))
         m_ctl = min(rel_l2(ctl_mean, ref_mean), rel_l2(ctl_var, ref_var))
         check(f"K5 {name} mean, var", m_rel, m_ctl, KERNEL_BN_MOMENTS_REL_L2)
@@ -1611,11 +1674,26 @@ def bn_kernel_phase():
             check(f"K6 {name} {act}", rel, ctl, tol)
             a_rel, a_ctl = max(a_rel, rel), min(a_ctl, ctl)
             a_err = max(a_err, (y.float() - ref.float()).abs().max().item())
+        fy, fm, fv = bn.fused_bn_act(x, scale, bias)
+        torch.cuda.synchronize()
+        f_ref = bn.apply_bn_act_plain(x, fm, fv, scale, bias)
+        f_rel = rel_l2(fy, f_ref)
+        f_ctl = rel_l2(unnormalized_last_channels(x, f_ref), f_ref)
+        check(f"fused_bn_act {name}", f_rel, f_ctl, tol)
+        if not (torch.equal(fm, mean) and torch.equal(fv, var)):
+            raise AssertionError(f"fused_bn_act {name}: moments differ "
+                                 "from batch_moments'")
+        f_err = (fy.float() - f_ref.float()).abs().max().item()
 
         # timed on copies of x in turn, enough that each call reads its
         # input from HBM, not from the L2 the call before filled
         xs = itertools.cycle(rotation(x, l2_bytes))
         stats = (ref_mean, ref_var, scale, bias)
+        y_buf = torch.empty_like(x)
+
+        def fused_plain(xi):
+            return bn.apply_bn_act_plain(xi, *bn.batch_moments_plain(xi),
+                                         scale, bias)
         times = {
             "K5": (cuda_ms(lambda: bn.batch_moments(next(xs)), iters),
                    cuda_ms(lambda: bn.batch_moments_plain(next(xs)), iters),
@@ -1629,10 +1707,22 @@ def bn_kernel_phase():
                    cuda_ms(lambda: F.leaky_relu(F.batch_norm(
                        next(xs).permute(0, 3, 1, 2), *stats, False, 0.0,
                        1e-5), 0.01), iters)),
+            "fused": (cuda_ms(lambda: bn.fused_bn_act(next(xs), scale, bias),
+                              iters),
+                      cuda_ms(lambda: fused_plain(next(xs)), iters),
+                      # train mode: the batch's own moments
+                      cuda_ms(lambda: F.leaky_relu(F.batch_norm(
+                          next(xs).permute(0, 3, 1, 2), None, None, scale,
+                          bias, True, 0.0, 1e-5), 0.01), iters)),
         }
+        ceilings = dict(
+            copy_ms=cuda_ms(lambda: y_buf.copy_(next(xs)), iters),
+            sum_ms=cuda_ms(lambda: next(xs).sum(), iters),
+            launch_floor_ms=cuda_ms(lambda: torch.add(one, one), iters))
         readings = {"K5": (m_rel, m_ctl, m_err, KERNEL_BN_MOMENTS_REL_L2,
                            "moments"),
-                    "K6": (a_rel, a_ctl, a_err, tol, "apply")}
+                    "K6": (a_rel, a_ctl, a_err, tol, "apply"),
+                    "fused": (f_rel, f_ctl, f_err, tol, "fused")}
         for kname, (ms, plain_ms, lib_ms) in times.items():
             rel, ctl, err, limit, kind = readings[kname]
             bound, by = bn_bound(rows, c, x.element_size(), kind)
@@ -1640,15 +1730,21 @@ def bn_kernel_phase():
                        dtype=str(dtype).replace("torch.", ""), rel_l2=rel,
                        control_rel_l2=ctl, tolerance=limit, max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound, bound_by=by)
+                       bound_ms=bound, bound_by=by,
+                       bound_share=bound / ms, **ceilings,
+                       plan=dataclasses.asdict(plan))
+            if kname == "K5":
+                row["bits_repeat"] = bits
             rows_out[kname].append(row)
             log(f"{kname} {name} {tuple(shape)} {row['dtype']}: rel_l2 "
                 f"{rel:.3g} (limit {limit:g}; control {ctl:.3g}), "
                 f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({by})")
-        del x, xs
-    return rows_out, fused_launches
+                f"{bound:.4f} ms ({by}, {bound / ms:.0%}); copy "
+                f"{ceilings['copy_ms']:.4f}, sum {ceilings['sum_ms']:.4f}, "
+                f"launch floor {ceilings['launch_floor_ms']:.4f} ms")
+        del x, xs, y_buf
+    return rows_out, fused_launches, counts
 
 
 def bn_counters():
@@ -5295,7 +5391,8 @@ def main() -> int:
     k1_rows = phase("K1 kernel checks", kernel_phase)
     train_rows = phase("K2, K3 + K4 kernel checks", train_kernel_phase)
     dq_order = phase("dq order", dq_order_phase, fp32_dq)
-    bn_rows, bn_launches = phase("K5, K6 kernel checks", bn_kernel_phase)
+    bn_rows, bn_launches, bn_per_call = phase("K5, K6 kernel checks",
+                                              bn_kernel_phase)
     bundle, main = phase("main path", main_path)
     path = phase("UNet path check", unet_path_check, bundle)
     profile = phase("UNet profile", profile_unet, bundle)
@@ -5510,13 +5607,20 @@ def main() -> int:
     note = ("launches: per call of fused_bn_act in the kernel phase; "
             "main_path_launches: counted over the serving request, the "
             "request from the photo and the 5 timed train steps (no model "
-            "calls K5 or K6, as in the JAX package)")
-    for i, ((label, line, rows, lib), n) in enumerate(zip(
+            "calls K5 or K6, as in the JAX package); "
+            "device_kernels_per_call: torch.profiler over one call at P "
+            "fp32; fused_bn_act: K5 then K6 under programmatic dependent "
+            "launch, beside F.batch_norm (training) then F.leaky_relu; "
+            "copy_ms, sum_ms, launch_floor_ms: y.copy_(x), x.sum() and a "
+            "one-element add in the same run")
+    for i, ((label, line, rows, lib, symbol), n) in enumerate(zip(
             (("batch_moments (K5)", 35, bn_rows["K5"],
-              "torch.var_mean over (rows, C), correction 0"),
+              "torch.var_mean over (rows, C), correction 0",
+              "bn_moments_kernel"),
              ("apply_bn_act (K6)", 58, bn_rows["K6"],
               "F.batch_norm (inference) on the channels-last view, then "
-              "F.leaky_relu: two calls")), bn_launches)):
+              "F.leaky_relu: two calls", "bn_apply_kernel")),
+            bn_launches)):
         on_paths = {"generate": main["bn_launches"][i],
                     "generate_from_photo": photo["launches"][3 + i],
                     "train_steps": train["launches"][3 + i]}
@@ -5524,7 +5628,13 @@ def main() -> int:
                                 lib),
                         "main_path_launches": on_paths,
                         "launches_in_bisenet_training":
-                            bisenet["launches"][3 + i], "note": note})
+                            bisenet["launches"][3 + i],
+                        "device_kernels_per_call": bn_per_call,
+                        "fused_bn_act": bn_rows["fused"],
+                        "kernel_resources": [
+                            k for k in resources["fused_bn_act"]["kernels"]
+                            if symbol in k["kernel"]],
+                        "note": note})
     for entry, n in zip(kernels, fgid["launches"]):
         entry["launches_in_fgid_phase"] = n     # phase 30: none
     log(json.dumps({"main_path": main, "unet_path_check": path,

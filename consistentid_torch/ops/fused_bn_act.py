@@ -5,8 +5,14 @@ The kernels replace the JAX package's Pallas TPU kernels
 (consistentid_tpu/ops/fused_bn_act.py):
   K5 `batch_moments` <- `_moments_kernel`    (csrc/fused_bn_act.cu)
   K6 `apply_bn_act`  <- `_normalize_kernel`  (csrc/fused_bn_act.cu)
-The source's header states what bounds them on an H100 (bytes) and how the
-design answers.
+The source's header states what bounds them on an H100 (bytes, and at
+small shapes what a call costs besides them) and how the design answers:
+each is one launch. K5 is a persistent grid of thread block clusters whose
+sums meet in distributed shared memory and then in the cluster that draws
+the last ticket, in an order fixed by the shape, so its bits repeat from
+call to call (`consistentid_torch.testing.moments_in_kernel_order` gives
+them in plain torch). K6 computes rsqrt(var + eps) in its prologue.
+`bn_plan` is the launch: what it returns is what the kernels run with.
 
 Every function takes NHWC tensors (B, H, W, C), as the JAX package does, of
 float32, bfloat16 or float16; statistics are fp32 (C,). A CUDA tensor
@@ -16,16 +22,18 @@ kernel is held against on the card. Each launch adds one to the wrapper's
 `.launches`.
 
 `fused_bn_act` is K5 then K6 (train-mode BatchNorm + activation on one
-device, the InPlaceABN equivalent); `sync_batch_norm_act` all-reduces the
-moments over a `torch.distributed` group first. No model of the port calls
-them, as no model of the JAX package does: its BiSeNet, ArcFace and SCRFD use
-a plain BatchNorm.
+device, the InPlaceABN equivalent), K6 launched with programmatic dependent
+launch so that it starts while K5 ends; `sync_batch_norm_act` all-reduces
+the moments over a `torch.distributed` group first. No model of the port
+calls them, as no model of the JAX package does: its BiSeNet, ArcFace and
+SCRFD use a plain BatchNorm.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,15 +43,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ACTIVATIONS = ("leaky_relu", "relu", "silu", "identity")
 THREADS = 256             # CTA size of both kernels
 H100_SMS = 132
-MOMENT_CTAS_PER_SM = 4    # K5 pass 1 aims at this many CTAs per SM
-MIN_CHUNK_ROWS = 256      # ... each summing at least this many rows
+MOMENT_CTAS_PER_SM = 2    # K5: a persistent grid of about 2 CTAs an SM,
+MIN_CTA_ROWS = 256        # ... each summing at least this many rows
+MAX_CLUSTER = 8           # K5: CTAs of a cluster, the portable most
+FINAL_ROWS_IN_FLIGHT = 16  # K5: partial rows a lane of the last cluster
+#                            loads at once
+APPLY_CTAS_PER_SM = 8     # K6: CTAs of 256 threads resident on an SM
+# K6: rows a thread loads at once (the kernel's), by x's dtype
+APPLY_ROWS_IN_FLIGHT = {torch.float32: 4, torch.bfloat16: 8,
+                        torch.float16: 8}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
-    "cid_bn_moments": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _I, _P],
-    "cid_bn_apply": [_P] * 6 + [_L, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+    "cid_bn_moments": [_P] * 6 + [_L, _I, _I, _I, _L, _I, _I, _I, _I, _P],
+    "cid_bn_apply": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                 _P],
 }
 
@@ -72,6 +88,22 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
 
 
+# K5's ticket counters, one uint32 per channel tile, per (device, stream):
+# zeroed when made, left zeroed by every launch.
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    counters = _tickets.get(key)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 64), dtype=torch.int32,
+                               device=device)
+        _tickets[key] = counters
+    return counters
+
+
 # ------------------------------------------------------------------ layout
 
 def channel_layout(c: int, dtype: torch.dtype, aligned: bool = True
@@ -87,15 +119,79 @@ def channel_layout(c: int, dtype: torch.dtype, aligned: bool = True
     return vec, cvp, -(-cv // cvp)
 
 
-def moment_chunk_rows(rows: int, c: int, dtype: torch.dtype,
-                      aligned: bool = True, sms: int = H100_SMS) -> int:
-    """Rows per K5 pass-1 chunk: enough chunks that the CTAs fill `sms` SMs
-    MOMENT_CTAS_PER_SM times, each chunk at least MIN_CHUNK_ROWS rows, a
-    multiple of 64. The card checks drop one such chunk as their control."""
-    _, _, c_tiles = channel_layout(c, dtype, aligned)
-    chunks = max(1, sms * MOMENT_CTAS_PER_SM // c_tiles)
-    per = max(MIN_CHUNK_ROWS, -(-rows // chunks))
-    return -(-per // 64) * 64
+@dataclass(frozen=True)
+class BNPlan:
+    """The launch of K5 and K6 for one shape (`bn_plan`).
+
+    Both: `vec` channels a load, `cvp` lanes over a row's vectors,
+    `c_tiles` CTAs across the channels; `row_lanes` = 256 / cvp rows read
+    side by side. K5: `ctas` CTAs along the rows, CTA i summing rows
+    [i * rows_per_cta, ...), in clusters of `cluster`, one partial row a
+    cluster (`partial_rows`), which the last cluster sums over
+    `final_lanes` lanes. K6: `apply_blocks` CTAs along the rows, each
+    thread keeping `apply_rows_in_flight` rows in flight."""
+    vec: int
+    cvp: int
+    c_tiles: int
+    rows_per_cta: int
+    ctas: int
+    cluster: int
+    partial_rows: int
+    final_lanes: int
+    apply_blocks: int
+    apply_rows_in_flight: int
+
+    @property
+    def row_lanes(self) -> int:
+        return THREADS // self.cvp
+
+
+def bn_plan(rows: int, c: int, dtype: torch.dtype, aligned: bool = True,
+            sms: int = H100_SMS) -> BNPlan:
+    """The launch of K5 and K6 for `rows` rows of `c` channels of `dtype`
+    (`aligned`: x, and K6's output, on a 16-byte boundary) on a card of
+    `sms` SMs.
+
+    K5: about MOMENT_CTAS_PER_SM CTAs an SM over all channel tiles, each
+    summing at least MIN_CTA_ROWS rows; from MAX_CLUSTER CTAs on, a
+    multiple of it, so that every cluster is whole; below, the largest
+    power of two that divides the count. The last CTAs may be short, or
+    empty. Each of the 2 * vec * cvp values (S and Q of each channel) of
+    the partial rows is summed over the fewest lanes (a power of two, at
+    most a warp's 32) that load them in one round of FINAL_ROWS_IN_FLIGHT.
+    K6: at most APPLY_CTAS_PER_SM CTAs an SM; of those, the fewest
+    that take the row groups (of APPLY_ROWS_IN_FLIGHT[dtype] * row_lanes
+    rows) in as few grid-stride rounds, so no CTA takes more than one group
+    above another."""
+    if rows < 1 or c < 1:
+        raise ValueError(f"no rows to plan: {rows} x {c}")
+    vec, cvp, c_tiles = channel_layout(c, dtype, aligned)
+    ctas = max(1, min(sms * MOMENT_CTAS_PER_SM // c_tiles,
+                      rows // MIN_CTA_ROWS))
+    if ctas >= MAX_CLUSTER:
+        ctas -= ctas % MAX_CLUSTER
+    cluster = MAX_CLUSTER
+    while ctas % cluster:
+        cluster //= 2
+    partial_rows = ctas // cluster
+    lanes = -(-partial_rows // FINAL_ROWS_IN_FLIGHT)
+    final_lanes = min(32, 1 << (lanes - 1).bit_length())
+    in_flight = APPLY_ROWS_IN_FLIGHT[dtype]
+    groups = -(-rows // (THREADS // cvp * in_flight))
+    per_block = -(-groups // max(1, sms * APPLY_CTAS_PER_SM // c_tiles))
+    return BNPlan(vec=vec, cvp=cvp, c_tiles=c_tiles,
+                  rows_per_cta=-(-rows // ctas), ctas=ctas, cluster=cluster,
+                  partial_rows=partial_rows, final_lanes=final_lanes,
+                  apply_blocks=-(-groups // per_block),
+                  apply_rows_in_flight=in_flight)
+
+
+def plan_for(x: torch.Tensor) -> BNPlan:
+    """`bn_plan` for an NHWC tensor as the wrappers launch it: its pointer's
+    alignment, and its card's SM count (H100_SMS for a CPU tensor)."""
+    c = x.shape[-1]
+    sms = _sm_count(x.device.index) if x.device.type == "cuda" else H100_SMS
+    return bn_plan(x.numel() // c, c, x.dtype, _aligned(x), sms)
 
 
 def _check_x(x: torch.Tensor, name: str) -> None:
@@ -166,22 +262,25 @@ def apply_bn_act_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 # ------------------------------------------------------------------ wrappers
 
 def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5: per-channel (mean, var) of an NHWC tensor, fp32 (C,) each."""
+    """K5: per-channel (mean, var) of an NHWC tensor, fp32 (C,) each; one
+    launch, the same bits every call."""
     _check_x(x, "batch_moments")
     if x.device.type == "cpu":
         return batch_moments_plain(x)
+    return _batch_moments(x, plan_for(x))
+
+
+def _batch_moments(x: torch.Tensor, plan: BNPlan):
+    """K5 launched with `plan`."""
     c = x.shape[-1]
-    rows = x.numel() // c
-    aligned = _aligned(x)
-    vec, cvp, _ = channel_layout(c, x.dtype, aligned)
-    sms = _sm_count(x.device.index)
-    per = moment_chunk_rows(rows, c, x.dtype, aligned, sms)
-    n_chunks = -(-rows // per)
-    partials = torch.empty((2, n_chunks, c), dtype=torch.float32,
+    partials = torch.empty((2, plan.partial_rows, c), dtype=torch.float32,
                            device=x.device)
     stats = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    _launch("cid_bn_moments", x.device, x, partials[0], partials[1], stats[0],
-            stats[1], rows, c, vec, cvp, per, n_chunks, _DTYPE_CODES[x.dtype])
+    _launch("cid_bn_moments", x.device, x, partials[0], partials[1],
+            _ticket_counters(x.device, plan.c_tiles), stats[0], stats[1],
+            x.numel() // c, c, plan.vec, plan.cvp, plan.rows_per_cta,
+            plan.ctas, plan.cluster, plan.final_lanes,
+            _DTYPE_CODES[x.dtype])
     batch_moments.launches += 1
     return stats[0], stats[1]
 
@@ -202,8 +301,18 @@ def apply_bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                  scale: torch.Tensor, bias: torch.Tensor, *, eps: float = 1e-5,
                  activation: str = "leaky_relu",
                  slope: float = 0.01) -> torch.Tensor:
-    """K6: normalize + affine + activation in one pass, in x's dtype. inv =
-    rsqrt(var + eps) is computed here, outside the kernel, as JAX does."""
+    """K6: normalize + affine + activation in one pass, in x's dtype; inv =
+    rsqrt(var + eps) is computed in the kernel."""
+    return _apply_bn_act(x, mean, var, scale, bias, eps, activation, slope,
+                         pdl=False)
+
+
+def _apply_bn_act(x, mean, var, scale, bias, eps, activation, slope,
+                  pdl: bool) -> torch.Tensor:
+    """apply_bn_act; pdl: launch K6 with programmatic dependent launch, to
+    overlap the end of the kernel before it (K5): K6 then loads its first
+    rows of x before it waits for that kernel, so the kernel just before
+    must not write x."""
     _check_x(x, "apply_bn_act")
     _check_stats(x, mean=mean, var=var, scale=scale, bias=bias)
     _check_activation(activation)
@@ -211,19 +320,15 @@ def apply_bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
         return apply_bn_act_plain(x, mean, var, scale, bias, eps=eps,
                                   activation=activation, slope=slope)
     c = x.shape[-1]
-    rows = x.numel() // c
-    mean, scale, bias = (t.float().contiguous() for t in (mean, scale, bias))
-    inv = torch.rsqrt(var.float() + eps)
+    # no kernel where a statistic is fp32 and contiguous already
+    mean, var, scale, bias = (t.float().contiguous()
+                              for t in (mean, var, scale, bias))
     out = torch.empty_like(x)
-    vec, cvp, c_tiles = channel_layout(c, x.dtype,
-                                       _aligned(x) and _aligned(out))
-    sms = _sm_count(x.device.index)
-    # 8 CTAs of 256 threads fill an SM; a grid-stride loop covers the rest
-    blocks = max(1, min(-(-rows // (THREADS // cvp)),
-                        sms * 8 // c_tiles))
-    _launch("cid_bn_apply", x.device, x, mean, inv, scale, bias, out, rows, c,
-            vec, cvp, blocks, ACTIVATIONS.index(activation), float(slope),
-            _DTYPE_CODES[x.dtype])
+    plan = plan_for(x)
+    _launch("cid_bn_apply", x.device, x, mean, var, scale, bias, out,
+            x.numel() // c, c, plan.vec, plan.cvp, plan.apply_blocks,
+            plan.apply_rows_in_flight, ACTIVATIONS.index(activation),
+            float(eps), float(slope), _DTYPE_CODES[x.dtype], int(pdl))
     apply_bn_act.launches += 1
     return out
 
@@ -235,11 +340,12 @@ for _wrapper in (batch_moments, apply_bn_act):
 def fused_bn_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                  eps: float = 1e-5, activation: str = "leaky_relu",
                  slope: float = 0.01):
-    """Train-mode BatchNorm + activation on one device (K5 then K6).
-    Returns (y, mean, var): the moments feed running-stat updates."""
+    """Train-mode BatchNorm + activation on one device: K5, then K6 under
+    programmatic dependent launch (two launches). Returns (y, mean, var):
+    the moments feed running-stat updates."""
     mean, var = batch_moments(x)
-    y = apply_bn_act(x, mean, var, scale, bias, eps=eps,
-                     activation=activation, slope=slope)
+    y = _apply_bn_act(x, mean, var, scale, bias, eps, activation, slope,
+                      pdl=True)
     return y, mean, var
 
 
@@ -249,10 +355,11 @@ def sync_batch_norm_act(x: torch.Tensor, scale: torch.Tensor,
                         group: Optional[object] = None):
     """Cross-process SyncBN (the JAX package's psum over a mesh axis): the
     local moments (K5) are all-reduced over the `torch.distributed` group,
-    then each process normalizes its shard (K6). As in JAX, n is the number
-    of processes, g_mean = sum(mean) / n and g_var = sum(var + mean^2) / n -
-    g_mean^2: the moments of the union only when every shard has the same
-    number of rows; unequal shards are weighted equally."""
+    then each process normalizes its shard (K6, under programmatic
+    dependent launch after the statistics' last kernel). As in JAX, n is
+    the number of processes, g_mean = sum(mean) / n and g_var = sum(var +
+    mean^2) / n - g_mean^2: the moments of the union only when every shard
+    has the same number of rows; unequal shards are weighted equally."""
     import torch.distributed as dist
 
     mean, var = batch_moments(x)
@@ -263,6 +370,6 @@ def sync_batch_norm_act(x: torch.Tensor, scale: torch.Tensor,
         dist.all_reduce(t, group=group)
     g_mean = g_sum / n
     g_var = g_sq / n - g_mean * g_mean
-    y = apply_bn_act(x, g_mean, g_var, scale, bias, eps=eps,
-                     activation=activation, slope=slope)
+    y = _apply_bn_act(x, g_mean, g_var, scale, bias, eps, activation, slope,
+                      pdl=True)
     return y, g_mean, g_var

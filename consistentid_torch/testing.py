@@ -32,11 +32,13 @@ KERNEL_REL_L2_FP32 = 1e-5
 # (up to 3.3e-4 read; the dropped-tile controls 0.057 and more).
 KERNEL_REL_L2_SAME_PRECISION = 1e-3
 # K5 (batch_moments) against its plain version, relative L2 of mean and of
-# var: both sum in fp32, in another order (chunks of rows and a fixed tree
-# against torch's reduction); inputs with channel offsets keep mean and var
-# of order 1, so the error is a few fp32 ulps of E[x^2]. The control, the
-# plain moments with the last chunk of rows never summed, reads at least
-# the chunk's share of the rows (1/523 at BiSeNet's stem).
+# var: both sum in fp32, in another order (spans of rows, clusters and
+# fixed trees against torch's reduction); inputs with channel offsets keep
+# mean and var of order 1, so the error is a few fp32 ulps of E[x^2]. The
+# control, the plain moments with the last cluster's rows never summed
+# (`moments_without_last_cluster`), reads at least that cluster's share of
+# the rows (1/33 at BiSeNet's stem). The card checks also hold K5's bits
+# equal to `moments_in_kernel_order`.
 KERNEL_BN_MOMENTS_REL_L2 = 1e-5
 # K6 (apply_bn_act) against its plain version: the kernel rounds each of
 # JAX's operations on its own, in the same order as the plain version's
@@ -108,13 +110,68 @@ def drop_last_tile(n: int, tile: int = 64) -> int:
     return (n - 1) // tile * tile
 
 
-def moments_without_last_chunk(x: torch.Tensor, chunk_rows: int):
-    """The control of K5's card check: the plain moments of an NHWC tensor
-    with its last chunk of `chunk_rows` rows never summed (still divided by
-    all the rows), as a kernel that lost a pass-1 CTA would give them."""
+def _lane_sums(rows: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Per-channel fp32 sums of the rows of each group of `rows` (groups,
+    n, C), as a CTA of K5 takes them: `lanes` row lanes, lane l adding rows
+    l, l + lanes, ... in order from 0 (zero rows pad the last step: adding
+    0 changes no sum), then a fixed pairwise tree over the lanes, lane l
+    adding lane l + stride for l a multiple of 2 * stride, stride = 1, 2,
+    ... lanes / 2. Each addition is one rounded fp32 operation, as in the
+    kernel. Returns (groups, C)."""
+    groups, n, c = rows.shape
+    steps = -(-n // lanes)
+    pad = rows.new_zeros((groups, steps * lanes - n, c))
+    rows = torch.cat([rows, pad], 1).view(groups, steps, lanes, c)
+    acc = rows.new_zeros((groups, lanes, c))
+    for k in range(steps):
+        acc = acc + rows[:, k]
+    stride = 1
+    while stride < lanes:
+        acc[:, ::2 * stride] += acc[:, stride::2 * stride]
+        stride *= 2
+    return acc[:, 0]
+
+
+def moments_in_kernel_order(x: torch.Tensor, plan):
+    """K5's mean and var of an NHWC tensor in plain torch, summed in the
+    order the kernel launched with `plan` (`ops.fused_bn_act.bn_plan`)
+    sums: each CTA's span of rows over its row lanes, then its tree; the
+    CTAs of a cluster in rank order; the clusters' partial rows as a CTA
+    sums rows, over `plan.final_lanes` lanes. Squares are rounded before
+    they are added. Then mean = S / rows and var = Q / rows - mean^2, each
+    a rounded fp32 operation (a true division by a tensor: torch divides
+    by a Python number as a product with its reciprocal). On the card the
+    kernel's bits equal these; channel tiles and vector widths do not
+    change a channel's order."""
     c = x.shape[-1]
     rows = x.numel() // c
-    xf = x.reshape(rows, c)[:(rows - 1) // chunk_rows * chunk_rows].float()
+    xf = x.reshape(rows, c).float()
+    spans = torch.cat([xf, xf.new_zeros((plan.ctas * plan.rows_per_cta
+                                         - rows, c))])
+    spans = spans.view(plan.ctas, plan.rows_per_cta, c)
+    sums = []
+    for part in (spans, spans * spans):
+        ranks = _lane_sums(part, plan.row_lanes).view(plan.partial_rows,
+                                                      plan.cluster, c)
+        acc = ranks[:, 0]
+        for r in range(1, plan.cluster):
+            acc = acc + ranks[:, r]
+        sums.append(_lane_sums(acc.unsqueeze(0), plan.final_lanes)[0])
+    s, q = sums
+    n = torch.full_like(s, float(rows))
+    mean = s / n
+    return mean, q / n - mean * mean
+
+
+def moments_without_last_cluster(x: torch.Tensor, plan):
+    """The control of K5's card check: the plain moments of an NHWC tensor
+    with the rows of the last cluster of `plan` never summed (still divided
+    by all the rows), as a kernel that lost a cluster's partial row would
+    give them."""
+    c = x.shape[-1]
+    rows = x.numel() // c
+    keep = (plan.partial_rows - 1) * plan.cluster * plan.rows_per_cta
+    xf = x.reshape(rows, c)[:min(keep, rows)].float()
     mean = xf.sum(0) / rows
     return mean, (xf * xf).sum(0) / rows - mean * mean
 

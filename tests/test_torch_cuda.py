@@ -1,6 +1,8 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version,
 for each dtype and head-dim (K1-K4) or channel-layout (K5, K6)
-instantiation, ragged tails included, the route of K1, K2 and the fused
+instantiation, ragged tails included; K5's bits against the plain moments
+summed in its order, over repeated calls and on a second stream, and the
+device kernels a K5, K6 or fused_bn_act call launches (torch.profiler); the route of K1, K2 and the fused
 K3 + K4 (sm90, mma or f32) asserted from the launch counts; the autograd
 Function's gradients through the kernels against those through the plain
 versions; what the wrappers refuse; two perception networks on the card
@@ -33,7 +35,8 @@ from consistentid_torch.testing import (KERNEL_BN_APPLY_REL_L2_16BIT,
                                         KERNEL_REL_L2_FP32,
                                         KERNEL_REL_L2_SAME_PRECISION,
                                         PERCEPTION_REL_L2, drop_last_tile,
-                                        moments_without_last_chunk,
+                                        moments_in_kernel_order,
+                                        moments_without_last_cluster,
                                         randomize_perception_module, rel_l2,
                                         tf32_off, unnormalized_last_channels)
 
@@ -671,14 +674,15 @@ def test_bn_moments_kernel_matches_plain(cuda_generator, shape, dtype):
     assert port_bn.batch_moments.launches == before + 1
     assert mean.dtype == var.dtype == torch.float32
     ref_mean, ref_var = port_bn.batch_moments_plain(x)
-    rows = x.numel() // shape[-1]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk = port_bn.moment_chunk_rows(rows, shape[-1], dtype, True, sms)
-    ctl_mean, ctl_var = moments_without_last_chunk(x, chunk)
+    plan = port_bn.plan_for(x)
+    ctl_mean, ctl_var = moments_without_last_cluster(x, plan)
     for got, ref, ctl in ((mean, ref_mean, ctl_mean), (var, ref_var, ctl_var)):
         assert torch.isfinite(got).all()
         assert rel_l2(got, ref) <= KERNEL_BN_MOMENTS_REL_L2
         assert rel_l2(ctl, ref) > KERNEL_BN_MOMENTS_REL_L2
+    # and bit for bit the plain moments summed in the kernel's order
+    want_mean, want_var = moments_in_kernel_order(x, plan)
+    assert torch.equal(mean, want_mean) and torch.equal(var, want_var)
 
 
 @pytest.mark.cuda
@@ -719,6 +723,120 @@ def test_bn_kernels_one_channel_per_load(cuda_generator, dtype):
     limit = (KERNEL_BN_APPLY_REL_L2_FP32 if dtype == torch.float32
              else KERNEL_BN_APPLY_REL_L2_16BIT)
     assert rel_l2(y, ref) <= limit
+
+
+def _device_kernels(fn, calls=3):
+    """The device kernels torch.profiler records over `calls` calls of fn,
+    by name, after one call outside it and a first profiler session that
+    is thrown away (the first session of a process can miss the kernels of
+    its first moments)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call,kernels", [
+    ("batch_moments", ["bn_moments_kernel"]),
+    ("apply_bn_act", ["bn_apply_kernel"]),
+    ("fused_bn_act", ["bn_moments_kernel", "bn_apply_kernel"]),
+])
+def test_bn_calls_launch_one_kernel_each(cuda_generator, call, kernels):
+    """One device kernel per K5 or K6 call, and two per fused_bn_act: no
+    second pass over K5's partials, no separate kernels for rsqrt."""
+    x, scale, bias = _bn_inputs(cuda_generator, (1, 256, 256, 64),
+                                torch.float32)
+    mean, var = port_bn.batch_moments_plain(x)
+    fn = {"batch_moments": lambda: port_bn.batch_moments(x),
+          "apply_bn_act": lambda: port_bn.apply_bn_act(x, mean, var, scale,
+                                                       bias),
+          "fused_bn_act": lambda: port_bn.fused_bn_act(x, scale, bias)}[call]
+    names = _device_kernels(fn)   # over 3 calls
+    assert len(names) == 3 * len(kernels), names
+    for want in kernels:
+        assert sum(want in name for name in names) == 3, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 256, 256, 64), torch.float32),
+    ((1, 256, 256, 64), torch.bfloat16),
+    ((2, 16, 16, 1000), torch.bfloat16),
+    ((1, 33, 17, 19), torch.float16),
+])
+def test_bn_moments_bits_repeat(cuda_generator, shape, dtype):
+    """K5 three times on one x and once on a second stream: the same bits,
+    and those of the plain moments summed in the kernel's order."""
+    x, _, _ = _bn_inputs(cuda_generator, shape, dtype)
+    runs = [port_bn.batch_moments(x) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(port_bn.batch_moments(x))
+    torch.cuda.synchronize()
+    want = moments_in_kernel_order(x, port_bn.plan_for(x))
+    for mean, var in runs:
+        assert torch.equal(mean, want[0]) and torch.equal(var, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ctas,cluster,row_lanes", [
+    ((1, 48, 32, 16), 6, 2, 64),    # 6 CTAs: 3 clusters of 2
+    ((1, 40, 34, 16), 5, 1, 64),    # 5 CTAs: clusters of 1
+    ((1, 2, 2, 24), 1, 1, 32),      # 4 rows: fewer than a CTA's row lanes
+    ((1, 1, 3, 19), 1, 1, 8),       # 3 rows, 1-wide loads
+])
+def test_bn_kernels_small_grids(cuda_generator, shape, ctas, cluster,
+                                row_lanes):
+    """Grids whose CTA count is not a multiple of 8 take a smaller cluster,
+    and shapes of fewer rows than a CTA reads side by side: K5 and K6
+    against their plain versions, K5 bit for bit in its order."""
+    x, scale, bias = _bn_inputs(cuda_generator, shape, torch.float32)
+    plan = port_bn.plan_for(x)
+    assert (plan.ctas, plan.cluster, plan.row_lanes) == (ctas, cluster,
+                                                         row_lanes)
+    y, mean, var = port_bn.fused_bn_act(x, scale, bias)
+    torch.cuda.synchronize()
+    want_mean, want_var = moments_in_kernel_order(x, plan)
+    assert torch.equal(mean, want_mean) and torch.equal(var, want_var)
+    ref_mean, ref_var = port_bn.batch_moments_plain(x)
+    assert rel_l2(mean, ref_mean) <= KERNEL_BN_MOMENTS_REL_L2
+    assert rel_l2(var, ref_var) <= KERNEL_BN_MOMENTS_REL_L2
+    ref = port_bn.apply_bn_act_plain(x, mean, var, scale, bias)
+    assert rel_l2(y, ref) <= KERNEL_BN_APPLY_REL_L2_FP32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", ["bfloat16", "float16", "strided"])
+def test_bn_apply_kernel_other_statistics(cuda_generator, stats):
+    """K6 on 16-bit and on non-contiguous statistics: the wrapper makes
+    them fp32 and contiguous, the kernel computes rsqrt(var + eps), and
+    the output matches the plain version on the same statistics."""
+    x, scale, bias = _bn_inputs(cuda_generator, (2, 30, 30, 64),
+                                torch.bfloat16)
+    mean, var = port_bn.batch_moments_plain(x)
+    if stats == "strided":
+        mean, var, scale, bias = (torch.stack([t, t], 1)[:, 0]
+                                  for t in (mean, var, scale, bias))
+        assert not mean.is_contiguous()
+    else:
+        dt = getattr(torch, stats)
+        mean, var, scale, bias = (t.to(dt) for t in (mean, var, scale, bias))
+    y = port_bn.apply_bn_act(x, mean, var, scale, bias, eps=1e-3,
+                             activation="silu")
+    ref = port_bn.apply_bn_act_plain(x, mean, var, scale, bias, eps=1e-3,
+                                     activation="silu")
+    assert rel_l2(y, ref) <= KERNEL_BN_APPLY_REL_L2_16BIT
+    assert rel_l2(unnormalized_last_channels(x, ref), ref) > (
+        KERNEL_BN_APPLY_REL_L2_16BIT)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,7 @@
 """K5 and K6's plain versions on the CPU against the JAX package's Pallas
 kernels in interpret mode (`batch_moments`, `apply_bn_act`, `fused_bn_act`),
+the moments summed in K5's order (`moments_in_kernel_order`) against JAX's,
+the kernels' launch plan (`bn_plan`),
 the SyncBN variant over 2 gloo processes against JAX's `fused_bn_act` of the
 concatenated batch, and the wrappers' CPU dispatch. Inputs are drawn with
 numpy from a seed; channel offsets keep mean and var of order 1.
@@ -11,6 +13,8 @@ order 1); 16-bit outputs one bf16 ulp (2^-7 relative, 1e-5 absolute near
 zero), where the same fp32 value on both sides lands on either side of a
 rounding boundary.
 """
+import dataclasses
+import functools
 import os
 import socket
 import subprocess
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 
 from consistentid_tpu.ops import fused_bn_act as jax_bn
 from consistentid_torch.ops import fused_bn_act as port_bn
+from consistentid_torch.testing import moments_in_kernel_order
 
 REPO = Path(__file__).resolve().parents[1]
 ACTIVATIONS = ("leaky_relu", "relu", "silu", "identity")
@@ -57,12 +62,22 @@ def _assert_out(got: torch.Tensor, want, bf16: bool):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_moments(shape, bf16):
+    """JAX's batch_moments in interpret mode on `_inputs(shape, 0)`, once
+    for the tests that compare with it."""
+    x, _, _ = _inputs(shape, 0)
+    jx, _ = _pair(x, bf16)
+    return tuple(np.asarray(a) for a in jax_bn.batch_moments(
+        jx, interpret=True))
+
+
 @pytest.mark.parametrize("shape", [(2, 9, 7, 24), RAGGED])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_batch_moments_matches_jax(shape, bf16):
     x, _, _ = _inputs(shape, 0)
-    jx, tx = _pair(x, bf16)
-    want_mean, want_var = jax_bn.batch_moments(jx, interpret=True)
+    _, tx = _pair(x, bf16)
+    want_mean, want_var = _jax_moments(shape, bf16)
     mean, var = port_bn.batch_moments(tx)
     assert mean.dtype == var.dtype == torch.float32
     assert mean.shape == var.shape == (shape[-1],)
@@ -70,6 +85,27 @@ def test_batch_moments_matches_jax(shape, bf16):
                                atol=2e-6)
     np.testing.assert_allclose(var.numpy(), np.asarray(want_var), rtol=0,
                                atol=2e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 7, 24), RAGGED])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_moments_in_kernel_order_matches_jax(shape, bf16):
+    """The moments summed in K5's order (what the card holds the kernel to
+    bit for bit) against JAX's kernel: in the wrapper's plan, and in one
+    of 16-row spans in 12 clusters of 4 (the last CTAs empty), so that
+    spans, ranks and partial rows all meet."""
+    x, _, _ = _inputs(shape, 0)
+    _, tx = _pair(x, bf16)
+    want_mean, want_var = _jax_moments(shape, bf16)
+    plan = port_bn.plan_for(tx)
+    small = dataclasses.replace(plan, rows_per_cta=16, ctas=48, cluster=4,
+                                partial_rows=12, final_lanes=4)
+    for plan in (plan, small):
+        mean, var = moments_in_kernel_order(tx, plan)
+        assert mean.dtype == var.dtype == torch.float32
+        np.testing.assert_allclose(mean.numpy(), want_mean, rtol=0,
+                                   atol=2e-6)
+        np.testing.assert_allclose(var.numpy(), want_var, rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("activation", ACTIVATIONS)
@@ -138,20 +174,56 @@ def test_cpu_tensors_take_the_plain_path():
         port_bn.batch_moments(tx.double())
 
 
-def test_kernel_layout():
-    """The CTA layout the kernels are launched with (the card tests hold the
-    kernels at each kind): 16-byte vectors where C allows, power-of-two
-    lanes over a row's vectors, tiles past 32 vectors; chunks of rows that
-    fill the card."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    assert port_bn.channel_layout(64, f32) == (4, 16, 1)
-    assert port_bn.channel_layout(64, bf16) == (8, 8, 1)
-    assert port_bn.channel_layout(24, f32) == (4, 8, 1)
-    assert port_bn.channel_layout(19, f32) == (1, 32, 1)
-    assert port_bn.channel_layout(64, f32, aligned=False) == (1, 32, 2)
-    assert port_bn.channel_layout(1000, bf16) == (8, 32, 4)
-    assert port_bn.moment_chunk_rows(16 * 224 * 224, 64, f32) == 1536
-    assert port_bn.moment_chunk_rows(126, 24, f32) == 256
+# (shape, dtype, aligned) -> the plan's vec, cvp, c_tiles; K5's
+# rows_per_cta, ctas, cluster, partial_rows, final_lanes; K6's apply_blocks
+PLANS = [
+    ((16, 224, 224, 64), torch.float32, True,      # BiSeNet training's stem
+     (4, 16, 1, 3041, 264, 8, 33, 4, 1046)),
+    ((1, 256, 256, 64), torch.float32, True,       # the parser's stem, P
+     (4, 16, 1, 256, 256, 8, 32, 2, 1024)),
+    ((1, 256, 256, 64), torch.bfloat16, True,
+     (8, 8, 1, 256, 256, 8, 32, 2, 256)),
+    ((2, 9, 7, 24), torch.float32, True,           # fewer rows than a CTA
+     (4, 8, 1, 126, 1, 1, 1, 1, 1)),
+    ((1, 33, 17, 19), torch.bfloat16, True,        # C = 19, 1-wide loads
+     (1, 32, 1, 281, 2, 2, 1, 1, 9)),
+    ((2, 16, 16, 1000), torch.bfloat16, True,      # four channel tiles
+     (8, 32, 4, 256, 2, 2, 1, 1, 8)),
+    ((2, 30, 30, 64), torch.float32, False,        # an unaligned pointer
+     (1, 32, 2, 258, 7, 1, 7, 1, 57)),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,want", PLANS)
+def test_kernel_layout(shape, dtype, aligned, want):
+    """The launch the kernels run with (`bn_plan`; the card tests hold the
+    kernels at each kind): 16-byte vectors where C and the pointer allow,
+    power-of-two lanes over a row's vectors, tiles past 32 vectors; K5 a
+    persistent grid of about 2 CTAs an SM in whole clusters of up to 8
+    (a smaller one where the count is not a multiple of 8), every row
+    covered; K6 at most 8 CTAs an SM, the fewest that take the row groups
+    in as many rounds, so that no CTA takes more than one group above
+    another."""
+    c = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    plan = port_bn.bn_plan(rows, c, dtype, aligned)
+    assert (plan.vec, plan.cvp, plan.c_tiles, plan.rows_per_cta, plan.ctas,
+            plan.cluster, plan.partial_rows, plan.final_lanes,
+            plan.apply_blocks) == want
+    assert port_bn.channel_layout(c, dtype, aligned) == want[:3]
+    assert plan.apply_rows_in_flight == (4 if dtype == torch.float32 else 8)
+    assert plan.ctas % plan.cluster == 0 and plan.cluster in (1, 2, 4, 8)
+    assert (plan.ctas - 1) * plan.rows_per_cta < rows <= (
+        plan.ctas * plan.rows_per_cta)
+    assert plan.ctas * plan.c_tiles <= 2 * port_bn.H100_SMS
+    # the last cluster loads the partial rows in one round, in one warp
+    assert plan.final_lanes * 16 >= plan.partial_rows
+    assert plan.final_lanes <= 32
+    assert plan.apply_blocks * plan.c_tiles <= 8 * port_bn.H100_SMS
+    groups = -(-rows // (plan.row_lanes * plan.apply_rows_in_flight))
+    rounds = -(-groups // plan.apply_blocks)   # of the grid-stride loop
+    assert (plan.apply_blocks - 1) * rounds < groups <= (
+        plan.apply_blocks * rounds)
 
 
 _RANK = """
